@@ -1,0 +1,78 @@
+"""Threaded image decode for evaluation (the port's own copy of
+``load_image`` / ``image_size`` / ``ImageBatcher`` in
+leclip_tpu/data/loader.py). PIL is imported when an image is read. The
+native libjpeg runtime of the JAX package is not ported; decoding uses a
+PIL thread pool."""
+
+from __future__ import annotations
+
+import concurrent.futures
+from typing import Iterator, List, Sequence, Tuple
+
+import numpy as np
+
+
+def load_image(path: str) -> np.ndarray:
+    """Decode one image to uint8 RGB [H, W, 3] (retry once on IO errors)."""
+    from PIL import Image
+
+    for attempt in range(2):
+        try:
+            with Image.open(path) as im:
+                return np.asarray(im.convert("RGB"), np.uint8)
+        except OSError:
+            if attempt:
+                raise
+    raise OSError(f"unreadable image {path}")
+
+
+def image_size(path: str) -> Tuple[int, int]:
+    """(h, w) from the image header only."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        w, h = im.size
+    return h, w
+
+
+class ImageBatcher:
+    """Image decode → fixed-size batches of raw uint8 images plus their paths.
+
+    ``sort_by_bucket`` orders the images by the shape bucket ``bucket_fn``
+    maps them to (then by exact size), so one large image does not drag a
+    batch to the largest bucket and uniform batches keep the shared-geometry
+    crop path. ``inverse_order`` restores the input order."""
+
+    def __init__(self, paths: Sequence[str], batch_size: int, workers: int = 8,
+                 sort_by_bucket: bool = False, bucket_fn=None):
+        paths = list(paths)
+        self.order = np.arange(len(paths))
+        if sort_by_bucket and paths:
+            if bucket_fn is None:
+                from ..inference.tta import pick_bucket as bucket_fn
+            with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+                sizes = list(pool.map(image_size, paths))
+            keys = []
+            for h, w in sizes:
+                bh, bw = bucket_fn(h, w)
+                keys.append((bh * bw, bh, bw, h, w))
+            self.order = np.asarray(sorted(range(len(paths)), key=lambda i: keys[i]), np.int64)
+            paths = [paths[i] for i in self.order]
+        self.paths = paths
+        self.batch_size = batch_size
+        self.workers = workers
+
+    @property
+    def inverse_order(self) -> np.ndarray:
+        inv = np.empty_like(self.order)
+        inv[self.order] = np.arange(len(self.order))
+        return inv
+
+    def __len__(self) -> int:
+        return (len(self.paths) + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self) -> Iterator[Tuple[List[np.ndarray], List[str]]]:
+        with concurrent.futures.ThreadPoolExecutor(self.workers) as pool:
+            for start in range(0, len(self.paths), self.batch_size):
+                chunk = self.paths[start: start + self.batch_size]
+                yield list(pool.map(load_image, chunk)), chunk

@@ -1,0 +1,160 @@
+"""Full competition inference pipeline (counterpart of
+leclip_tpu/inference/pipeline.py): the six prompt checkpoints grouped as the
+reference's eval launcher groups them, scored over the multi-scale TTA
+pyramid with image features shared by all members, fused with fuse/fuse6 +
+per-class routing, and written as ``impreds.json``.
+
+Not ported yet (ROADMAP.md): the per-member dump path (``save_dir``), the
+int8 caption bank and the device mesh."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..data.loader import ImageBatcher
+from ..device import resolve_device, tree_map
+from ..engine.checkpoint import load_prompt_params
+from ..engine.config import INT8_PENDING, resolve_test_precision
+from ..models.clip import CLIPConfig
+from ..models.dense_clip import DenseFlags
+from ..models.prompt import build_prompt_learner
+from ..models.text import encode_text
+from ..ops.ensemble import normalized_cooccurrence, write_impreds
+from .tta import ModelSpec, TTAEngine, build_model_spec
+
+# the reference eval launcher's grouping: (names, use_evidence, use_freq, n_ctx)
+DEFAULT_MODEL_GROUPS: Tuple[Tuple[Tuple[str, ...], bool, bool, Optional[int]], ...] = (
+    (("best", "difft"), True, True, None),
+    (("zema", "diff", "diffh"), False, False, None),
+    (("ema",), False, False, 64),
+)
+
+DUMP_PENDING = ("the per-member dump path (save_dir: data.pkl / sim_matrix.pkl) is not "
+                "ported yet (ROADMAP.md queue 1); run with save_dir=None")
+
+
+def build_caption_bank(clip_params: dict, clip_cfg: CLIPConfig, caption_tokens: np.ndarray,
+                       batch_size: int = 256, dtype=np.float32, precision: str = "default",
+                       device=None) -> np.ndarray:
+    """Encode a caption corpus into the L2-normalised retrieval bank [N, E].
+
+    ``precision='default'``: the text tower as given (fp32, plain math).
+    ``precision='bf16'``: the tower cast to bf16; on CUDA it runs the fused
+    bf16 block kernels (ops/block_kernels.py). ``'int8'`` is not ported."""
+    device = resolve_device(device)
+    text = tree_map(lambda t: t.to(device), clip_params["text"])
+    fused = False
+    if precision == "int8":
+        raise NotImplementedError(INT8_PENDING)
+    if precision == "bf16":
+        text = tree_map(lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t, text)
+        fused = device.type == "cuda"
+    elif precision != "default":
+        raise ValueError(f"unknown precision {precision!r}")
+
+    n = len(caption_tokens)
+    pad = (-n) % batch_size
+    toks = np.concatenate([caption_tokens, caption_tokens[:pad]]) if pad else caption_tokens
+    out = []
+    with torch.inference_mode():
+        for i in range(0, len(toks), batch_size):
+            t = torch.as_tensor(np.asarray(toks[i: i + batch_size]), dtype=torch.long,
+                                device=device)
+            f = encode_text(text, t, clip_cfg.transformer_heads, fused=fused).float()
+            out.append(f / torch.linalg.vector_norm(f, dim=-1, keepdim=True))
+        bank = torch.cat(out)[:n].cpu().numpy()
+    return bank.astype(dtype)
+
+
+def load_ensemble_specs(cfg, clip_params: dict, clip_cfg: CLIPConfig,
+                        classnames: Sequence[str], model_dir: str,
+                        groups=DEFAULT_MODEL_GROUPS) -> Dict[str, ModelSpec]:
+    """Load every member's prompt checkpoint and pre-encode its prompt text
+    features (per-group n_ctx / evidence settings), on the device of
+    ``clip_params``."""
+    device = clip_params["text"]["token_embedding"].device
+    specs: Dict[str, ModelSpec] = {}
+    for names, use_evidence, use_freq, n_ctx in groups:
+        flags = DenseFlags(
+            use_evidence=use_evidence,
+            learn_scale=cfg.TRAIN.IF_LEARN_SCALE,
+            learn_spatial_scale=cfg.TRAIN.IF_LEARN_spatial_SCALE,
+            spatial_scale_text=float(cfg.TRAIN.spatial_SCALE_text),
+            spatial_scale_image=float(cfg.TRAIN.spatial_SCALE_image),
+        )
+        generator = torch.Generator(device=device).manual_seed(cfg.SEED)
+        constants_cache: Dict[int, dict] = {}
+        for name in names:
+            try:
+                trainable = load_prompt_params(model_dir, name, device=device)
+            except FileNotFoundError:
+                print(f"note: no checkpoint for ensemble member {name!r} — skipped")
+                continue
+            # the ctx shape in the checkpoint is authoritative (ema is 64)
+            actual_nctx = int(trainable["ctx"].shape[-2])
+            expect = n_ctx or cfg.TRAINER.N_CTX
+            if actual_nctx != expect:
+                print(f"note: {name} checkpoint has n_ctx={actual_nctx} "
+                      f"(group default {expect}); using checkpoint value")
+            if actual_nctx not in constants_cache:
+                _, constants_cache[actual_nctx] = build_prompt_learner(
+                    generator, clip_params, list(classnames), n_ctx=actual_nctx,
+                    class_token_position=cfg.TRAINER.CLASS_TOKEN_POSITION,
+                )
+            specs[name] = build_model_spec(clip_params, clip_cfg, trainable,
+                                           constants_cache[actual_nctx], flags,
+                                           use_freq=use_freq)
+    if not specs:
+        raise FileNotFoundError(f"no ensemble checkpoints found under {model_dir!r}")
+    return specs
+
+
+def make_engine(cfg, clip_params, clip_cfg, specs, caption_bank=None, freq_stats=None,
+                device=None) -> TTAEngine:
+    """Config-driven TTAEngine construction: co-occurrence (TEST.use_freq is
+    the master switch; per-member routing lives in ModelSpec.use_freq) and
+    the resolved precision (engine/config.py resolve_test_precision)."""
+    cooc = None
+    if freq_stats is not None and cfg.TEST.use_freq:
+        cooc = normalized_cooccurrence(np.asarray(freq_stats["adj"], np.float32),
+                                       np.asarray(freq_stats["nums"], np.float32))
+    prec = resolve_test_precision(cfg.TEST.PREC)
+    if prec != cfg.TEST.PREC:
+        print(f"TEST.PREC {cfg.TEST.PREC!r} resolved to {prec!r}")
+    return TTAEngine(
+        clip_params, clip_cfg, specs, scales=cfg.TEST.multi_scale,
+        caption_bank=None if caption_bank is None else torch.as_tensor(caption_bank),
+        cooccurrence=cooc, use_freq=False,
+        topk=cfg.TEST.retrieval_topk,
+        block_threshold=cfg.TEST.block_threshold,
+        block_coef=cfg.TEST.block_fuse_coef,
+        crop_size=clip_cfg.image_resolution,
+        compute_dtype=torch.float32 if prec == "fp32" else torch.bfloat16,
+        precision="bf16",
+        device=device,
+    )
+
+
+def run_full_inference(engine: TTAEngine, image_paths: Sequence[str], batch_size: int = 8,
+                       save_dir: Optional[str] = None, out_json: Optional[str] = None,
+                       progress: bool = True) -> np.ndarray:
+    """TTA-score every image with every member and emit ``impreds.json``.
+    Returns fused scores in the original ``image_paths`` order. Batches are
+    bucket-sorted; a producer thread decodes and uploads ahead of compute."""
+    if save_dir:
+        raise NotImplementedError(DUMP_PENDING)
+    batcher = ImageBatcher(image_paths, batch_size, sort_by_bucket=True)
+    parts = []
+    batches = (images for images, _ in batcher)
+    for bi, part in enumerate(engine.run_batches_fused_staged(batches, depth=2, stage_ahead=2)):
+        parts.append(part)
+        if progress:
+            print(f"TTA batch {bi + 1}/{len(batcher)} (fused, pipelined)")
+    fused = np.concatenate(parts)[batcher.inverse_order]
+    if out_json:
+        write_impreds(fused, out_json)
+    return fused
+

@@ -1,0 +1,354 @@
+"""Multi-scale TTA inference engine (counterpart of leclip_tpu/inference/tta.py),
+fused path.
+
+One pass per batch: uint8 images → 305 crops each (1 global + the 2/3/4
+pyramid) → matmul bicubic resize → CLIP normalise → image tower once for all
+members → one exact top-k retrieval against the caption bank → every
+member's global/local logits (members of a group stacked on a leading axis)
+→ fuse/fuse6 block fusion → per-class routing → fused [B, C] scores.
+
+With a bf16 ViT on CUDA the image tower runs the hand-written bf16 block
+kernels (``_fused``, the counterpart of the JAX engine's TPU switch).
+
+Not ported yet (ROADMAP.md): the device mesh and ``shard_bank``, the
+per-member dump path (``run_batch`` / ``dispatch_batch_dump``), the gather
+resizer, and the int8 precision."""
+
+from __future__ import annotations
+
+import queue
+import threading
+from collections import deque
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import cast_floating, resolve_device, tree_map
+from ..models.clip import CLIPConfig
+from ..models.dense_clip import (
+    DenseFlags,
+    encode_image_features,
+    prompt_text_features,
+    retrieval_augment,
+    test_logits_from_features,
+)
+from ..ops.crops import tta_sampling_boxes
+from ..ops.ensemble import DEFAULT_ROUTING, adjust_predictions, fuse, fuse6, routing_vector
+from ..ops.preprocess import clip_normalize
+from ..ops.resize_matmul import crop_and_resize_matmul, crop_and_resize_matmul_batch
+
+DEFAULT_BUCKETS: Tuple[Tuple[int, int], ...] = (
+    (256, 256), (384, 512), (512, 384), (512, 512), (512, 768), (768, 512),
+    (768, 768), (768, 1024), (1024, 768), (1024, 1024), (1280, 1280),
+)
+
+
+def pick_bucket(h: int, w: int, buckets=DEFAULT_BUCKETS) -> Tuple[int, int]:
+    for bh, bw in buckets:
+        if h <= bh and w <= bw:
+            return bh, bw
+    return buckets[-1]
+
+
+def pad_to_bucket(img: np.ndarray, bucket: Tuple[int, int]) -> Tuple[np.ndarray, Tuple[int, int]]:
+    """Zero-pad ``img`` into ``bucket``; returns (padded, content (h, w)).
+    Oversized images are first downscaled (PIL bicubic, aspect kept), so the
+    content dims are the post-resize dims."""
+    bh, bw = bucket
+    h, w = img.shape[:2]
+    if h > bh or w > bw:
+        from PIL import Image
+
+        scale = min(bh / h, bw / w)
+        nh, nw = max(1, int(h * scale)), max(1, int(w * scale))
+        img = np.asarray(Image.fromarray(img).resize((nw, nh), Image.BICUBIC), img.dtype)
+        h, w = nh, nw
+    out = np.zeros((bh, bw, 3), img.dtype)
+    out[:h, :w] = img
+    return out, (h, w)
+
+
+class ModelSpec(NamedTuple):
+    """One ensemble member: trainable prompt params, cached prompt text
+    features, method flags, and its co-occurrence setting (None → inherit
+    the engine's)."""
+
+    trainable: dict
+    text_feats: Dict[str, torch.Tensor]
+    flags: DenseFlags
+    use_freq: Optional[bool] = None
+
+
+def build_model_spec(clip_params: dict, clip_cfg: CLIPConfig, trainable: dict,
+                     constants: dict, flags: DenseFlags,
+                     use_freq: Optional[bool] = None) -> ModelSpec:
+    """Pre-encode the member's three prompt sets once."""
+    with torch.inference_mode():
+        feats = prompt_text_features(clip_params, clip_cfg, trainable, constants, flags)
+    return ModelSpec(tree_map(lambda t: t.detach().clone(), trainable), feats, flags, use_freq)
+
+
+class Staged(NamedTuple):
+    n_boxes: int
+    batch: int
+    shared: bool
+    images: torch.Tensor   # [B, bh, bw, 3] uint8 on the device
+    boxes: torch.Tensor    # [n, 4] (shared) or [B, n, 4]
+    content: np.ndarray    # [B, 2] content (h, w)
+
+
+class TTAEngine:
+    def __init__(
+        self,
+        clip_params: dict,
+        clip_cfg: CLIPConfig,
+        models: Dict[str, ModelSpec],
+        scales: Tuple[int, ...] = (2, 3, 4),
+        caption_bank: Optional[torch.Tensor] = None,
+        cooccurrence: Optional[np.ndarray] = None,   # row-normalised P̂
+        use_freq: bool = False,
+        topk: int = 10,
+        block_threshold: float = 0.3,
+        block_coef: float = 1.4,
+        compute_dtype=torch.float32,
+        crop_size: int = 224,
+        antialias: bool = True,
+        precision: str = "bf16",
+        bf16_fused: Optional[bool] = None,  # None = auto (bf16 ViT on CUDA)
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        if precision != "bf16":
+            from ..engine.config import INT8_PENDING
+
+            if precision == "int8":
+                raise NotImplementedError(INT8_PENDING)
+            raise ValueError(f"unknown precision {precision!r}")
+        if bf16_fused is None:
+            bf16_fused = (clip_cfg.is_vit and compute_dtype == torch.bfloat16
+                          and self.device.type == "cuda")
+        self._fused = bool(bf16_fused) and clip_cfg.is_vit
+        to_dev = lambda t: t.to(self.device)  # noqa: E731
+        self.clip_params = tree_map(to_dev, clip_params)
+        if self._fused:
+            # the kernels take bf16 weights: cast the image tower once
+            self.clip_params = dict(self.clip_params)
+            self.clip_params["visual"] = cast_floating(self.clip_params["visual"],
+                                                       torch.bfloat16)
+        self.clip_cfg = clip_cfg
+        self.models = {
+            name: spec._replace(trainable=tree_map(to_dev, spec.trainable),
+                                text_feats=tree_map(to_dev, spec.text_feats))
+            for name, spec in models.items()
+        }
+        self.scales = tuple(scales)
+        self.caption_bank = (None if caption_bank is None
+                             else torch.as_tensor(caption_bank).to(self.device))
+        self.cooccurrence = (None if cooccurrence is None else
+                             torch.as_tensor(np.asarray(cooccurrence, np.float32)).to(self.device))
+        self.use_freq = use_freq and cooccurrence is not None
+        self.topk = topk
+        self.block_threshold = block_threshold
+        self.block_coef = block_coef
+        self.compute_dtype = compute_dtype
+        self.crop_size = crop_size
+        self.antialias = antialias
+        _, counts = tta_sampling_boxes(480, 640, self.scales)
+        self.n_blocks = sum(counts)
+        self._groups = None
+        self._routing = None
+
+    # ------------------------------ members ---------------------------------
+
+    def _member_use_freq(self, spec: ModelSpec) -> bool:
+        if self.cooccurrence is None:
+            return False
+        return self.use_freq if spec.use_freq is None else bool(spec.use_freq)
+
+    def _model_groups(self):
+        """Members grouped by (flags, ctx shapes, use_freq); each group's
+        trainables and text features stacked on a leading member axis, so a
+        group is scored in one batched pass."""
+        if self._groups is not None:
+            return self._groups
+        by_key: Dict[tuple, List[str]] = {}
+        for name, spec in self.models.items():
+            shapes = tuple(sorted((k, tuple(v.shape)) for k, v in spec.trainable.items()))
+            by_key.setdefault((spec.flags, shapes, self._member_use_freq(spec)), []).append(name)
+        groups = []
+        for (flags, _, use_freq), names in by_key.items():
+            specs = [self.models[n] for n in names]
+            tr = {k: torch.stack([s.trainable[k] for s in specs]) for k in specs[0].trainable}
+            tf = {k: torch.stack([s.text_feats[k] for s in specs]) for k in specs[0].text_feats}
+            groups.append((names, flags, use_freq, tr, tf))
+        self._groups = groups
+        names_order = [n for names, *_ in groups for n in names]
+        base = "best" if "best" in names_order else names_order[0]
+        n_cls = next(iter(self.models.values())).text_feats["pos"].shape[0]
+        # names_order is the stacking order of dispatch_staged_fused: the
+        # routing gather depends on the two sharing one ordering
+        self._routing = (base, torch.as_tensor(
+            routing_vector(names_order, DEFAULT_ROUTING, base=base, n_cls=n_cls),
+            dtype=torch.long, device=self.device))
+        return groups
+
+    # ------------------------------- passes ---------------------------------
+
+    def prepare_batch(self, images: Sequence[np.ndarray]):
+        """Host side: bucket-pad images and compute sampling boxes (global
+        central square first, then the pyramid)."""
+        buckets = [pick_bucket(*im.shape[:2]) for im in images]
+        bucket = pick_bucket(max(b[0] for b in buckets), max(b[1] for b in buckets))
+        padded, boxes, content = [], [], []
+        for im in images:
+            p, (h, w) = pad_to_bucket(im, bucket)
+            pyramid, _ = tta_sampling_boxes(h, w, self.scales)
+            side = min(h, w)
+            gy, gx = (h - side) / 2.0, (w - side) / 2.0
+            global_box = np.asarray([[gy, gx, gy + side, gx + side]], np.float32)
+            boxes.append(np.concatenate([global_box, pyramid], axis=0))
+            padded.append(p)
+            content.append((h, w))
+        return np.stack(padded), np.stack(boxes), np.asarray(content, np.int32), bucket
+
+    def stage_batch_fused(self, images: Sequence[np.ndarray]) -> Staged:
+        """Host prep + upload for one batch, without compute: lets a producer
+        thread stage batches ahead of the compute loop."""
+        padded, boxes, content, _ = self.prepare_batch(images)
+        b, n = boxes.shape[0], boxes.shape[1]
+        # every image with the same content size shares one crop geometry,
+        # built once for the batch
+        shared = bool((content == content[0]).all())
+        im_d = torch.from_numpy(padded).to(self.device)
+        bx_d = torch.from_numpy(boxes[0] if shared else boxes).to(self.device)
+        return Staged(n, b, shared, im_d, bx_d, content)
+
+    def _crops(self, staged: Staged) -> torch.Tensor:
+        imgs = staged.images.to(self.compute_dtype) / 255.0
+        size = self.crop_size
+        if staged.shared:
+            h, w = (int(v) for v in staged.content[0])
+            crops = crop_and_resize_matmul_batch(imgs, staged.boxes, size, self.antialias,
+                                                 content_hw=(h, w))
+        else:
+            crops = torch.stack([
+                crop_and_resize_matmul(imgs[i], staged.boxes[i], size, self.antialias,
+                                       content_hw=tuple(int(v) for v in staged.content[i]))
+                for i in range(staged.batch)
+            ])
+        return clip_normalize(crops)
+
+    def dispatch_staged_fused(self, staged: Staged) -> torch.Tensor:
+        """Score a staged batch → on-device fused [B, C] (not synchronised)."""
+        groups = self._model_groups()
+        base, routing = self._routing
+        b, n = staged.batch, staged.n_boxes
+        coef = 1.5
+        with torch.inference_mode():
+            crops = self._crops(staged)
+            flat = crops.reshape((-1,) + crops.shape[2:])
+            feats = encode_image_features(self.clip_params, self.clip_cfg, flat,
+                                          groups[0][1], fused=self._fused)
+            if self.caption_bank is not None:
+                aug, scores = retrieval_augment(feats.global_feat, self.caption_bank, self.topk)
+            else:
+                aug = feats.global_feat
+                scores = torch.zeros((flat.shape[0], self.topk), device=self.device)
+            sims_blocks = scores.reshape(b, n, -1)[:, 1:]
+            results = []
+            for names, flags, g_use_freq, tr, tf in groups:
+                out = test_logits_from_features(tr, tf, feats, flags,
+                                                precomputed_retrieval=(aug, scores))
+                m = len(names)
+                g = out.logits_global.reshape(m, b, n, -1)
+                loc = out.logits_local.reshape(m, b, n, -1)
+                if g_use_freq:
+                    loc = adjust_predictions(loc, self.cooccurrence)
+                for mi, name in enumerate(names):
+                    use6 = name == base
+                    f = fuse6 if use6 else fuse
+                    aux_coef = 1.5 if use6 else 1.0
+                    o = g[mi, :, 0] + coef * f(g[mi, :, 1:], sims_blocks)
+                    a = loc[mi, :, 0] + coef * f(loc[mi, :, 1:], sims_blocks)
+                    results.append(o + aux_coef * a)
+            stack = torch.stack(results)                              # [M, B, C]
+            c = stack.shape[-1]
+            return stack.permute(1, 2, 0).gather(
+                2, routing[None, :, None].expand(b, c, 1))[..., 0]
+
+    def dispatch_batch_fused(self, images: Sequence[np.ndarray]) -> torch.Tensor:
+        return self.dispatch_staged_fused(self.stage_batch_fused(images))
+
+    @staticmethod
+    def _fetch(out: torch.Tensor) -> np.ndarray:
+        return out.float().cpu().numpy()
+
+    def run_batch_fused(self, images: Sequence[np.ndarray]) -> np.ndarray:
+        """Competition scoring of one batch → fused [B, n_cls] (the
+        impreds.json numbers)."""
+        return self._fetch(self.dispatch_batch_fused(images))
+
+    def run_batches_fused(self, batches, depth: int = 2):
+        """Fused scoring over an iterable of image lists, ``depth`` batches
+        dispatched ahead of the one being read."""
+        pending = deque()
+        for images in batches:
+            pending.append(self.dispatch_batch_fused(images))
+            if len(pending) >= depth:
+                yield self._fetch(pending.popleft())
+        while pending:
+            yield self._fetch(pending.popleft())
+
+    def run_batches_fused_staged(self, batches, depth: int = 2, stage_ahead: int = 2):
+        """Producer-thread variant of :meth:`run_batches_fused`: a background
+        thread pulls image batches (driving image decode when ``batches`` is
+        lazy), preps and uploads them up to ``stage_ahead`` deep, while the
+        calling thread only dispatches compute and reads results."""
+        q: "queue.Queue" = queue.Queue(maxsize=max(1, stage_ahead))
+        err: list = []
+        stop = threading.Event()  # set when the consumer exits for any reason
+
+        def _put(item) -> bool:
+            # bounded put that gives up once the consumer is gone
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for images in batches:
+                    if stop.is_set() or not _put(self.stage_batch_fused(images)):
+                        return
+            except BaseException as e:  # re-raised on the consumer thread
+                err.append(e)
+            finally:
+                _put(None)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        pending = deque()
+        try:
+            while True:
+                staged = q.get()
+                if staged is None:
+                    break
+                pending.append(self.dispatch_staged_fused(staged))
+                if len(pending) >= depth:
+                    yield self._fetch(pending.popleft())
+            while pending:
+                yield self._fetch(pending.popleft())
+        finally:
+            stop.set()
+            try:  # drain so a producer mid-put can observe `stop` and exit
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            t.join(timeout=10.0)
+        if err:
+            raise err[0]

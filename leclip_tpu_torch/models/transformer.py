@@ -1,0 +1,111 @@
+"""Shared transformer machinery (counterpart of leclip_tpu/models/transformer.py):
+pre-LN residual blocks over [B, T, D], layers stacked along a leading axis
+and applied by a Python loop (the JAX package's ``lax.scan``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..ops.attention import _matmul, multi_head_attention
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with fp32 statistics, result cast back to x.dtype."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = ((x32 - mean) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's QuickGELU: x * sigmoid(1.702 x) — NOT exact GELU."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def _mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    y = layer_norm(x, p["ln_2"]["scale"], p["ln_2"]["bias"])
+    h = quick_gelu(_matmul(y, p["mlp"]["fc_kernel"]) + p["mlp"]["fc_bias"])
+    return x + (_matmul(h, p["mlp"]["proj_kernel"]) + p["mlp"]["proj_bias"])
+
+
+def residual_block(x: torch.Tensor, p: dict, n_heads: int,
+                   mask: Optional[torch.Tensor] = None, kv_len=None,
+                   causal: bool = False, fused: bool = False) -> torch.Tensor:
+    """One pre-LN residual attention block over [B, T, D].
+
+    ``fused`` (inference only) runs the two bf16 block kernels
+    (ops/block_kernels.py); ``causal`` marks ``mask`` as the standard
+    lower-triangular mask so the kernel applies it natively. Without
+    ``fused`` the block is the unfused math."""
+    if fused and (mask is None or causal):
+        from ..ops.block_kernels import attn_block_bf16, mlp_bf16
+
+        x = attn_block_bf16(
+            x, p["ln_1"]["scale"], p["ln_1"]["bias"],
+            p["attn"]["qkv_kernel"], p["attn"]["qkv_bias"],
+            p["attn"]["out_kernel"], p["attn"]["out_bias"],
+            n_heads, kv_len=kv_len, causal=causal,
+        )
+        return mlp_bf16(
+            x, p["ln_2"]["scale"], p["ln_2"]["bias"],
+            p["mlp"]["fc_kernel"], p["mlp"]["fc_bias"],
+            p["mlp"]["proj_kernel"], p["mlp"]["proj_bias"],
+        )
+    y = layer_norm(x, p["ln_1"]["scale"], p["ln_1"]["bias"])
+    x = x + multi_head_attention(y, p["attn"], n_heads, mask=mask, kv_len=kv_len)
+    return _mlp(x, p)
+
+
+def layer_params(stacked: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked block pytree."""
+    if isinstance(stacked, dict):
+        return {k: layer_params(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+def run_transformer(x: torch.Tensor, stacked: dict, n_heads: int,
+                    mask: Optional[torch.Tensor] = None, kv_len: Optional[int] = None,
+                    causal: bool = False, fused: bool = False) -> torch.Tensor:
+    """Apply the L stacked residual blocks in order."""
+    n_layers = stacked["ln_1"]["scale"].shape[0]
+    for i in range(n_layers):
+        x = residual_block(x, layer_params(stacked, i), n_heads, mask=mask,
+                           kv_len=kv_len, causal=causal, fused=fused)
+    return x
+
+
+def init_block_stack(generator: torch.Generator, layers: int, width: int,
+                     dtype=torch.float32, device=None) -> dict:
+    """L stacked blocks with the reference's init scheme: attn std w^-0.5,
+    out/proj std (w^-0.5)(2L)^-0.5, fc std (2w)^-0.5, LN ones/zeros."""
+    proj_std = (width ** -0.5) * ((2 * layers) ** -0.5)
+    attn_std = width ** -0.5
+    fc_std = (2 * width) ** -0.5
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=generator, device=device) * std).to(dtype)
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=dtype, device=device)
+
+    return {
+        "ln_1": {"scale": full((layers, width), 1.0), "bias": full((layers, width), 0.0)},
+        "attn": {
+            "qkv_kernel": normal((layers, width, 3 * width), attn_std),
+            "qkv_bias": full((layers, 3 * width), 0.0),
+            "out_kernel": normal((layers, width, width), proj_std),
+            "out_bias": full((layers, width), 0.0),
+        },
+        "ln_2": {"scale": full((layers, width), 1.0), "bias": full((layers, width), 0.0)},
+        "mlp": {
+            "fc_kernel": normal((layers, width, 4 * width), fc_std),
+            "fc_bias": full((layers, 4 * width), 0.0),
+            "proj_kernel": normal((layers, 4 * width, width), proj_std),
+            "proj_bias": full((layers, width), 0.0),
+        },
+    }
+

@@ -1,0 +1,210 @@
+"""Fused bf16 transformer sub-blocks (inference): hand-written Hopper kernels
+and their plain PyTorch versions.
+
+* ``attn_block_bf16`` — x + OutProj(MHA(LN(x)·W_qkv + b_qkv)).
+  Replaces leclip_tpu/ops/block_kernels.py ``attn_block_bf16``
+  (``_attn_block_bf16_kernel``). CUDA source: ``csrc/attn_block_bf16.cu``.
+* ``mlp_bf16`` — x + QuickGELU(LN(x)·W_fc + b_fc)·W_proj + b_proj.
+  Replaces leclip_tpu/ops/block_kernels.py ``mlp_bf16``
+  (``_mlp_bf16_kernel``). CUDA source: ``csrc/mlp_bf16.cu``.
+
+What bounds them on the H100, and what the design does about it, is in the
+note at the top of each source. In short: both are bound by tensor-core
+operations at the ViT-B/16 and caption-bank shapes. Every product runs on
+the tensor cores with fp32 accumulation: the projections through one tiled
+GEMM with the LayerNorm fused into its A-tile loads and the bias / GELU /
+residual into its epilogue (``csrc/gemm.cuh``), the attention core with its
+scores held in registers. The attention block is three launches (LN+QKV,
+per-head attention, out-proj+residual) and the MLP two (LN+fc+GELU,
+proj+residual); the bf16 qkv, per-head outputs and MLP hidden go through
+HBM, at exactly the points where the TPU kernels round them — later PRs
+fuse that traffic away.
+
+Each wrapper takes the plain version only for tensors on the CPU. For a CUDA
+tensor it launches the kernel or raises; it never falls back. ``launches``
+on each wrapper counts the calls that launched the kernel.
+
+The TPU kernels' VMEM gates (``fits_vmem_*``) have no counterpart: the CUDA
+kernels take widths D % 128 == 0 up to 1024 (every CLIP tower: 512, 640,
+768, 1024), head width 32, 64 or 128, and any row count."""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+
+# ------------------------------ plain versions -------------------------------
+
+
+def _ln32(x32: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
+    """fp32 LayerNorm statistics exactly as the TPU kernels write them."""
+    m = x32.mean(-1, keepdim=True)
+    c = x32 - m
+    v = (c * c).mean(-1, keepdim=True)
+    y = c * torch.rsqrt(v + eps)
+    return y * scale.float() + bias.float()
+
+
+def attn_block_bf16_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
+                          n_heads: int, kv_len=None, causal: bool = False,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """The TPU kernel's arithmetic in plain PyTorch, same rounding points:
+    qkv rounded to x.dtype; fp32 scores scaled by dh^-0.5 AFTER QKᵀ plus a
+    −1e30 bias on masked keys; p = exp(s − max) rounded unnormalised; the
+    denominator is Σp in fp32 (the ones-column of p·[V|1]); each head's output
+    rounded; fp32 out-proj; the residual sum rounded once."""
+    b, t, d = x.shape
+    if kv_len is None:
+        kv_len = t
+    dh = d // n_heads
+    dt = x.dtype
+    x32 = x.float()
+    y = _ln32(x32, ln_scale, ln_bias, eps)
+    qkv = (y.to(dt).reshape(b * t, d).float() @ qkv_w.float() + qkv_b.float()).to(dt)
+    qkv = qkv.reshape(b, t, 3, n_heads, dh).permute(2, 0, 3, 1, 4)  # [3, B, H, T, dh]
+    q, k, v = qkv[0].float(), qkv[1].float(), qkv[2].float()
+    col = torch.arange(t, device=x.device)
+    valid = col[None, :] < kv_len
+    if causal:
+        valid = valid & (col[None, :] <= col[:, None])
+    kbias = torch.where(valid, 0.0, -1e30).to(torch.float32).expand(t, t)
+    sc = (q @ k.transpose(-1, -2)) * dh**-0.5 + kbias
+    p = torch.exp(sc - sc.amax(-1, keepdim=True)).to(dt).float()
+    num = p @ v
+    den = p.sum(-1, keepdim=True)
+    att = (num / den).to(dt).permute(0, 2, 1, 3).reshape(b * t, d)
+    out = (att.float() @ out_w.float()).reshape(b, t, d)
+    return (x32 + out + out_b.float()).to(dt)
+
+
+def mlp_bf16_plain(x, ln_scale, ln_bias, fc_w, fc_b, pj_w, pj_b,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """The TPU kernel's arithmetic: fp32 LN, LN(x) rounded to x.dtype, fp32
+    fc + bias + QuickGELU, hidden rounded, fp32 proj + bias, residual rounded
+    once."""
+    shape = x.shape
+    d = shape[-1]
+    dt = x.dtype
+    x32 = x.reshape(-1, d).float()
+    y = _ln32(x32, ln_scale, ln_bias, eps)
+    h = y.to(dt).float() @ fc_w.float() + fc_b.float()
+    h = h * torch.sigmoid(1.702 * h)
+    o = h.to(dt).float() @ pj_w.float() + pj_b.float()
+    return (x32 + o).to(dt).reshape(shape)
+
+
+# --------------------------------- wrappers ----------------------------------
+
+
+def _check(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _raise_on(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {rc}")
+
+
+def _stream(device: torch.device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def attn_block_bf16(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
+                    n_heads: int, kv_len=None, causal: bool = False,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """x + OutProj(Attention(QKV(LN(x)))) over [B, T, D]; weights [D, 3D] /
+    [D, D] in [in, out] layout. ``kv_len`` masks trailing pad keys;
+    ``causal`` adds the lower-triangular mask."""
+    args = (x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b)
+    if x.device.type == "cpu":
+        return attn_block_bf16_plain(*args, n_heads, kv_len=kv_len, causal=causal, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"attn_block_bf16: unsupported device {x.device}")
+    b, t, d = x.shape
+    kv_len = t if kv_len is None else int(kv_len)
+    dh = d // n_heads
+    if d % 128 or d > 1024 or dh * n_heads != d or dh not in (32, 64, 128):
+        raise ValueError(f"attn_block_bf16: CUDA kernel needs D % 128 == 0, D <= 1024 and "
+                         f"head width 32/64/128, got D={d}, heads={n_heads}")
+    if not 1 <= kv_len <= t:
+        raise ValueError(f"attn_block_bf16: kv_len {kv_len} outside [1, {t}]")
+    dev = x.device
+    for name, ten, shape in (
+        ("x", x, (b, t, d)), ("ln_scale", ln_scale, (d,)), ("ln_bias", ln_bias, (d,)),
+        ("qkv_w", qkv_w, (d, 3 * d)), ("qkv_b", qkv_b, (3 * d,)),
+        ("out_w", out_w, (d, d)), ("out_b", out_b, (d,)),
+    ):
+        _check(f"attn_block_bf16 {name}", ten, shape, dev)
+    lib = _build.load("attn_block_bf16")
+    smem = lib.leclip_attn_core_smem(t, dh)
+    if smem > 232448:
+        raise ValueError(f"attn_block_bf16: T={t} needs {smem} B of shared memory, "
+                         "above the card's 227 KB")
+    qkv = torch.empty((b * t, 3 * d), dtype=x.dtype, device=dev)
+    att = torch.empty((b * t, d), dtype=x.dtype, device=dev)
+    out = torch.empty_like(x)
+    rc = lib.leclip_attn_block_bf16(
+        *(a.data_ptr() for a in args), qkv.data_ptr(), att.data_ptr(), out.data_ptr(),
+        b, t, d, n_heads, kv_len, int(bool(causal)), float(eps), _stream(dev),
+    )
+    _raise_on(rc, "attn_block_bf16")
+    attn_block_bf16.launches += 1
+    return out
+
+
+attn_block_bf16.launches = 0
+
+
+def mlp_bf16(x, ln_scale, ln_bias, fc_w, fc_b, pj_w, pj_b,
+             eps: float = 1e-5) -> torch.Tensor:
+    """x + MLP(LN(x)) over [..., D]; fc [D, H], proj [H, D] in [in, out]
+    layout. Rows are independent, so any leading shape is flattened."""
+    args = (x, ln_scale, ln_bias, fc_w, fc_b, pj_w, pj_b)
+    if x.device.type == "cpu":
+        return mlp_bf16_plain(*args, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_bf16: unsupported device {x.device}")
+    d = x.shape[-1]
+    hidden = fc_w.shape[-1]
+    if d % 128 or d > 1024 or hidden % 128:
+        raise ValueError(f"mlp_bf16: CUDA kernel needs D % 128 == 0, D <= 1024 and "
+                         f"hidden % 128 == 0, got D={d}, hidden={hidden}")
+    dev = x.device
+    rows = x.numel() // d
+    for name, ten, shape in (
+        ("x", x, x.shape), ("ln_scale", ln_scale, (d,)), ("ln_bias", ln_bias, (d,)),
+        ("fc_w", fc_w, (d, hidden)), ("fc_b", fc_b, (hidden,)),
+        ("pj_w", pj_w, (hidden, d)), ("pj_b", pj_b, (d,)),
+    ):
+        _check(f"mlp_bf16 {name}", ten, shape, dev)
+    lib = _build.load("mlp_bf16")
+    out = torch.empty_like(x)
+    hid = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
+    rc = lib.leclip_mlp_bf16(
+        *(a.data_ptr() for a in args), out.data_ptr(), hid.data_ptr(), rows, d, hidden,
+        float(eps), _stream(dev),
+    )
+    _raise_on(rc, "mlp_bf16")
+    mlp_bf16.launches += 1
+    return out
+
+
+mlp_bf16.launches = 0
+
+
+def reset_launch_counts() -> None:
+    attn_block_bf16.launches = 0
+    mlp_bf16.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"attn_block_bf16": attn_block_bf16.launches, "mlp_bf16": mlp_bf16.launches}

@@ -1,0 +1,82 @@
+"""The port stands alone: nothing under leclip_tpu_torch/ (nor chip_smoke.py)
+imports JAX or the JAX package, and every entry point runs on the card
+unless the caller asks for the CPU — without a card it raises."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "leclip_tpu")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "leclip_tpu_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_import_no_jax_nor_jax_package():
+    files = _port_files()
+    assert len(files) > 20 and os.path.exists(files[0])
+    bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imported_roots(p)
+           if m in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_imports_only_torch_numpy_and_stdlib():
+    import sys
+
+    allowed = {"torch", "numpy", "leclip_tpu_torch", "PIL", "yaml"}
+    std = set(sys.stdlib_module_names)
+    extra = sorted({(os.path.relpath(p, ROOT), m) for p in _port_files()
+                    for m in _imported_roots(p) if m not in allowed and m not in std})
+    assert not extra, extra
+
+
+@pytest.fixture()
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from leclip_tpu_torch.cli.eval import main as eval_main
+    from leclip_tpu_torch.device import resolve_device
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.inference.pipeline import build_caption_bank, make_engine
+    from leclip_tpu_torch.inference.tta import TTAEngine
+    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
+
+    cfg = PRESETS["ViT-TEST"]
+    params = init_clip_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = np.zeros((2, 77), np.int32)
+    calls = [
+        lambda: resolve_device(None),
+        lambda: init_clip_params(torch.Generator().manual_seed(0), cfg),
+        lambda: build_caption_bank(params, cfg, toks),
+        lambda: TTAEngine(params, cfg, {}),
+        lambda: make_engine(setup_config(), params, cfg, {}),
+        lambda: eval_main(["--backbone", "ViT-TEST", "--model-dir", str(tmp_path)]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # explicit CPU is honoured
+    assert resolve_device("cpu").type == "cpu"
+    assert build_caption_bank(params, cfg, toks, device="cpu").shape == (2, cfg.embed_dim)
