@@ -4,16 +4,21 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device: card name, power limit, and the nvcc build of every kernel;
-  2. kernels: each hand-written kernel against its plain PyTorch version on
-     the card at the main path's shapes (ViT-B/16 crops, caption-bank text),
-     with CUDA-event timings, a PyTorch-ops yardstick and the roofline bound;
-  3. main path at full ViT-B/16 width (12x768 vision, 12x512 text, seeded
-     random bf16 weights): a bf16 caption bank built through the kernels, a
-     six-member ensemble over the 80 COCO classes, and two 480x640 images
-     (305 crops each) scored by make_engine's TTAEngine through
-     run_batches_fused_staged — launch counters must show both kernels ran;
-     impreds.json is written and read back; features and scores of the
-     kernels' engine are held against the unfused plain path on a small input.
+  2. kernels: each of the five hand-written kernels (attn_block_bf16,
+     mlp_bf16, ln_quant, attn_block_int8, mlp_int8) against its plain PyTorch
+     version on the card at the main paths' shapes (ViT-B/16 crops,
+     caption-bank text), with CUDA-event timings, a PyTorch-ops yardstick and
+     the roofline bound;
+  3. the two main paths at full ViT-B/16 width (12x768 vision, 12x512 text,
+     seeded random bf16 weights), TEST.PREC bf16 and then TEST.PREC auto,
+     which must resolve to int8 on the card: a caption bank of 8,192 rows
+     built through the kernels, a six-member ensemble over the 80 COCO
+     classes, and two 480x640 images (305 crops each) scored by make_engine's
+     TTAEngine through run_batches_fused_staged — launch counters must show
+     that each path ran its own kernels in every layer and none of the other
+     path's; impreds.json is written and read back; the bf16 engine is held
+     against the unfused plain path on a small input, and the int8 engine and
+     bank against the bf16 ones.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 
@@ -32,9 +37,12 @@ import torch
 import torch.nn.functional as F
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8
+PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 N_IMAGES = 2               # images per scored batch: 2 x 305 = 610 crops
 BANK_ROWS = 8192
+DEVICE = torch.device("cuda")
 
 
 def log(msg):
@@ -86,7 +94,13 @@ def check_close(name, out, ref):
 
 
 def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return bound_s(flops / PEAK_BF16_FLOPS, nbytes)
+
+
+def bound_s(t_ops: float, nbytes: float):
+    """(bound ms, what bounds it) from the operations' time at their peak
+    rate and the bytes that must move."""
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -108,9 +122,15 @@ def lib_mlp(x, s, b, fw, fb, pw, pb):
     return x + F.linear(h * torch.sigmoid(1.702 * h), pw.t(), pb)
 
 
-def phase_kernels(bk, gen):
-    """Each kernel vs its plain version at the main path's shapes."""
-    dev = torch.device("cuda")
+SHAPES = {  # name: (batch, tokens, width, heads, kv_len, causal)
+    "vit": (N_IMAGES * 305, 200, 768, 12, 197, False),
+    "text": (256, 77, 512, 8, 77, True),
+}
+
+
+def phase_kernels_bf16(bk, gen):
+    """Each bf16 kernel vs its plain version at the main path's shapes."""
+    dev = DEVICE
 
     def rn(*shape, std=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * std).bfloat16()
@@ -123,12 +143,8 @@ def phase_kernels(bk, gen):
                rn(d, std=0.02)]
         return attn, mlp
 
-    shapes = {  # name: (batch, tokens, width, heads, kv_len, causal)
-        "vit": (N_IMAGES * 305, 200, 768, 12, 197, False),
-        "text": (256, 77, 512, 8, 77, True),
-    }
     res = {}
-    for tag, (b, t, d, heads, kv_len, causal) in shapes.items():
+    for tag, (b, t, d, heads, kv_len, causal) in SHAPES.items():
         x = rn(b, t, d)
         attn, mlp = weights(d, 4 * d)
         log(f"[kernels] {tag}: x [{b}, {t}, {d}] bf16, {heads} heads, kv_len {kv_len}, "
@@ -167,6 +183,205 @@ def phase_kernels(bk, gen):
     return res
 
 
+# ------------------------------ int8 kernels --------------------------------
+
+# Tolerances of the int8 kernels against their plain versions. Integer sums
+# are exact and the fp32 epilogues run the same operations in the same order
+# (no fused multiply-add), so the two differ only through the LayerNorm
+# statistics (summed in another order): a value within an ulp of a .5
+# boundary may round to the neighbouring int8 code, and that row of the
+# product then moves by up to one quantization step per element
+# (127 * s_row * s_col, printed) before the rest of the block spreads it.
+# Measured at the ViT-B/16 shape (NVIDIA H100 80GB HBM3, 700.00 W): 35 of
+# 93.7e6 codes flipped; no row of attn_block_int8 and 3 of 122,000 rows of
+# mlp_int8 held an element beyond 4 bf16 ulps, the largest at 6.5.
+LN_CODE_FLIP_FRACTION = 1e-4   # share of int8 codes that may differ, each by exactly 1
+SCALE_RTOL = 1e-6              # per-row scales
+BLOCK_ROW_FRACTION = 1e-3      # share of rows that may hold an element beyond 4 bf16 ulps
+BLOCK_ULP_CAP = 16             # ... and no element anywhere beyond this many
+
+
+def int_mm_works() -> bool:
+    """Whether torch._int_mm (the library's int8 product, a yardstick only)
+    runs on this build and card."""
+    if not hasattr(torch, "_int_mm"):
+        return False
+    a = torch.ones((32, 128), dtype=torch.int8, device=DEVICE)
+    w = torch.ones((128, 128), dtype=torch.int8, device=DEVICE).t()  # K contiguous per column
+    try:
+        ok = bool((torch._int_mm(a, w) == 128).all())
+    except RuntimeError as e:
+        log(f"  torch._int_mm unavailable ({str(e).splitlines()[0]}): the library yardstick "
+            "uses bf16 F.linear for the int8 products")
+        return False
+    return ok
+
+
+def lib_ln_quant(x, s, b):
+    """Yardstick: LN + per-row quantization in PyTorch's own ops."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), s.float(), b.float())
+    sc = (y.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    return torch.round(y / sc).clamp(-127, 127).to(torch.int8), sc
+
+
+def lib_int8_linear(xi, sx, w_i8, s_w, bias, int_mm: bool):
+    """Yardstick for one W8A8 product: torch._int_mm where it runs, else the
+    dequantized bf16 F.linear."""
+    if int_mm:
+        acc = torch._int_mm(xi, w_i8).float()
+        return acc * (sx * s_w) + bias.float()
+    w = (w_i8.float() * s_w).bfloat16()
+    return F.linear((xi.float() * sx).bfloat16(), w.t(), bias).float()
+
+
+def lib_attn_int8(x, s, b, w_i8, s_w, qb, ow, ob, heads, kv_len, causal, int_mm):
+    bsz, t, d = x.shape
+    xi, sx = lib_ln_quant(x.reshape(bsz * t, d), s, b)
+    qkv = lib_int8_linear(xi, sx, w_i8, s_w, qb, int_mm).bfloat16()
+    qkv = qkv.view(bsz, t, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+    mask = None
+    if not causal and kv_len < t:
+        mask = (torch.arange(t, device=x.device) < kv_len)[None, None, None, :]
+    att = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], attn_mask=mask,
+                                         is_causal=causal)
+    return x + F.linear(att.transpose(1, 2).reshape(bsz, t, d), ow.t(), ob)
+
+
+def lib_mlp_int8(x, s, b, fw, fs, fb, pw, ps, pb, int_mm):
+    d = x.shape[-1]
+    xi, sx = lib_ln_quant(x.reshape(-1, d), s, b)
+    h = lib_int8_linear(xi, sx, fw, fs, fb, int_mm)
+    h = h * torch.sigmoid(1.702 * h)
+    hs = (h.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    hi = torch.round(h / hs).clamp(-127, 127).to(torch.int8)
+    o = lib_int8_linear(hi, hs, pw, ps, pb, int_mm)
+    return (x.reshape(-1, d).float() + o).bfloat16().reshape(x.shape)
+
+
+def check_ln_quant(qk, x, ln_s, ln_b):
+    xi, xs = qk.ln_quant(x, ln_s, ln_b)
+    ri, rs = qk.ln_quant_plain(x, ln_s, ln_b)
+    torch.cuda.synchronize()
+    d = (xi.int() - ri.int()).abs()
+    flips = int((d != 0).sum().item())
+    frac = flips / d.numel()
+    s_err = ((xs - rs).abs() / rs).max().item()
+    log(f"  ln_quant: {flips} of {d.numel()} codes differ from the plain version "
+        f"({frac:.3g}; allowed {LN_CODE_FLIP_FRACTION:g}, each by exactly 1), max |d code| "
+        f"{int(d.max().item())}; scales max rel err {s_err:.3g} (allowed {SCALE_RTOL:g}); "
+        "reason: a value within an ulp of a .5 boundary, LN statistics summed in another order")
+    if xi.dtype != torch.int8 or xs.shape != rs.shape or not torch.isfinite(xs).all():
+        raise AssertionError("ln_quant: wrong output type / shape / non-finite scale")
+    if int(d.max().item()) > 1 or frac > LN_CODE_FLIP_FRACTION or s_err > SCALE_RTOL:
+        raise AssertionError("ln_quant: kernel disagrees with its plain version")
+    return float(d.max().item())
+
+
+def check_int8_block(name, out, ref, step):
+    """Within 4 bf16 ulps of max(1, |ref|) on all but the few rows a flipped
+    int8 code touches, and nowhere beyond BLOCK_ULP_CAP ulps."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    d = out.shape[-1]
+    diff = (out.float() - ref.float()).abs().reshape(-1, d)
+    ulps = 4 * diff / bf16_tol(ref).reshape(-1, d)
+    rows_over = (ulps > 4).any(-1).float().mean().item()
+    err, worst = diff.max().item(), ulps.max().item()
+    log(f"  {name}: max|kernel - plain| = {err:.6g}; rows with an element beyond 4 bf16 ulps "
+        f"of max(1,|ref|): {rows_over:.3g} (allowed {BLOCK_ROW_FRACTION:g}); largest "
+        f"{worst:.3g} ulps (allowed {BLOCK_ULP_CAP}); one quantization step of its first "
+        f"product, 127*s_row*s_col = {step:.4g}; reason: exact integer sums and the same fp32 "
+        "epilogue operations, so only rows whose int8 code flipped at a .5 boundary differ by "
+        "more than accumulation order")
+    if rows_over > BLOCK_ROW_FRACTION or worst > BLOCK_ULP_CAP:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version (max {err})")
+    return err
+
+
+def phase_kernels_int8(qk, gen):
+    """ln_quant, attn_block_int8 and mlp_int8 vs their plain versions at the
+    main path's shapes; weights from quantize_block_stack of seeded bf16
+    blocks with a few outlier LN channels."""
+    from leclip_tpu_torch.models.transformer import init_block_stack, layer_params
+    from leclip_tpu_torch.ops.quant import quantize_block_stack
+
+    dev = DEVICE
+    int_mm = int_mm_works()
+    log(f"[kernels] library yardstick for int8 products: "
+        f"{'torch._int_mm' if int_mm else 'bf16 F.linear on dequantized operands'}")
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).bfloat16()
+
+    res = {}
+    for tag, (b, t, d, heads, kv_len, causal) in SHAPES.items():
+        blocks = init_block_stack(gen, 1, d, dtype=torch.bfloat16, device=dev)
+        gain = torch.ones(d, device=dev)
+        gain[[5, 17, 42]] = 10.0  # outlier LN channels, as real CLIP ViTs carry
+        for ln in ("ln_1", "ln_2"):
+            blocks[ln]["scale"] = ((1 + rn(1, d, std=0.1).float()) * gain).bfloat16()
+            blocks[ln]["bias"] = rn(1, d, std=0.1)
+        blocks["attn"]["qkv_bias"] = rn(1, 3 * d, std=0.02)
+        blocks["attn"]["out_bias"] = rn(1, d, std=0.02)
+        blocks["mlp"]["fc_bias"] = rn(1, 4 * d, std=0.02)
+        blocks["mlp"]["proj_bias"] = rn(1, d, std=0.02)
+        q8 = layer_params(quantize_block_stack(blocks), 0)
+        p = layer_params(blocks, 0)
+        attn = (*q8["ln1"], *q8["attn"]["qkv"], p["attn"]["qkv_bias"], p["attn"]["out_kernel"],
+                p["attn"]["out_bias"])
+        mlp = (*q8["ln2"], *q8["mlp"]["fc"], p["mlp"]["fc_bias"], *q8["mlp"]["proj"],
+               p["mlp"]["proj_bias"])
+        x = rn(b, t, d)
+        log(f"[kernels] {tag} int8: x [{b}, {t}, {d}] bf16, {heads} heads, kv_len {kv_len}, "
+            f"causal {causal}")
+        akw = dict(kv_len=kv_len, causal=causal)
+        l_err = check_ln_quant(qk, x, *q8["ln1"])
+        _, xs1 = qk.ln_quant_plain(x, *q8["ln1"])
+        a_step = 127 * xs1.max().item() * q8["attn"]["qkv"][1].max().item()
+        a_err = check_int8_block("attn_block_int8", qk.attn_block_int8(x, *attn, heads, **akw),
+                                 qk.attn_block_int8_plain(x, *attn, heads, **akw), a_step)
+        _, xs2 = qk.ln_quant_plain(x, *q8["ln2"])
+        m_step = 127 * xs2.max().item() * q8["mlp"]["fc"][1].max().item()
+        m_err = check_int8_block("mlp_int8", qk.mlp_int8(x, *mlp), qk.mlp_int8_plain(x, *mlp),
+                                 m_step)
+        rows, hid = b * t, 4 * d
+        pairs = t * (t + 1) / 2 if causal else t * kv_len
+        l_bound = bound_s(10 * rows * d / PEAK_FP32_FLOPS, 3 * rows * d + 4 * rows + 4 * d)
+        a_bound = bound_s(6 * rows * d * d / PEAK_INT8_OPS
+                          + (2 * rows * d * d + 4 * b * d * pairs) / PEAK_BF16_FLOPS,
+                          4 * rows * d + 3 * d * d + 2 * d * d)
+        m_bound = bound_s(4 * rows * d * hid / PEAK_INT8_OPS, 4 * rows * d + 2 * d * hid)
+        res[tag] = {
+            "ln_quant": dict(
+                max_abs_err=l_err,
+                ms=cuda_ms(lambda: qk.ln_quant(x, *q8["ln1"]), 10),
+                plain_ms=cuda_ms(lambda: qk.ln_quant_plain(x, *q8["ln1"]), 3),
+                library_ms=cuda_ms(lambda: lib_ln_quant(x, *q8["ln1"]), 10),
+                bound_ms=l_bound[0], bound_by=l_bound[1]),
+            "attn_block_int8": dict(
+                max_abs_err=a_err,
+                ms=cuda_ms(lambda: qk.attn_block_int8(x, *attn, heads, **akw), 10),
+                plain_ms=cuda_ms(lambda: qk.attn_block_int8_plain(x, *attn, heads, **akw), 2),
+                library_ms=cuda_ms(lambda: lib_attn_int8(x, *attn, heads, kv_len, causal,
+                                                         int_mm), 5),
+                bound_ms=a_bound[0], bound_by=a_bound[1]),
+            "mlp_int8": dict(
+                max_abs_err=m_err,
+                ms=cuda_ms(lambda: qk.mlp_int8(x, *mlp), 10),
+                plain_ms=cuda_ms(lambda: qk.mlp_int8_plain(x, *mlp), 2),
+                library_ms=cuda_ms(lambda: lib_mlp_int8(x, *mlp, int_mm), 5),
+                bound_ms=m_bound[0], bound_by=m_bound[1]),
+        }
+        for k, r in res[tag].items():
+            log(f"  {k} [{tag}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+        del x, attn, mlp, blocks, q8, p
+        torch.cuda.empty_cache()
+    return res
+
+
 def synthetic_captions(n, gen_np):
     """[n, 77] token rows: SOT, 5-30 random BPE ids, EOT (the highest id)."""
     toks = np.zeros((n, 77), np.int32)
@@ -178,47 +393,115 @@ def synthetic_captions(n, gen_np):
     return toks
 
 
-def phase_main_path(bk, card):
-    from leclip_tpu_torch.data.vocab import COCO_OBJECT_CATEGORIES
+def build_bank(prec, params, clip_cfg, toks, card):
+    """The caption bank through the kernels of precision ``prec``, first call
+    and a warm second pass. Returns (bank, launch counts of the first call)."""
+    from leclip_tpu_torch.inference.pipeline import build_caption_bank
+    from leclip_tpu_torch.ops import launches
+
+    batch = 256
+    n_pass = math.ceil(BANK_ROWS / batch)
+    rates = []
+    for which in ("first call", "warm second pass"):
+        launches.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bank = build_caption_bank(params, clip_cfg, toks, batch_size=batch, precision=prec,
+                                  device=DEVICE)
+        torch.cuda.synchronize()
+        rates.append((which, BANK_ROWS / (time.perf_counter() - t0)))
+        if which == "first call":
+            counts, first = launches.launch_counts(), bank
+    log(f"[main:{prec}] caption bank {bank.shape}: launches {counts} (12 layers x {n_pass} "
+        f"batches of {batch})")
+    if not np.isfinite(bank).all() or bank.shape != (BANK_ROWS, clip_cfg.embed_dim):
+        raise AssertionError("caption bank not finite / wrong shape")
+    if not np.allclose(np.linalg.norm(bank, axis=-1), 1.0, atol=1e-3):
+        raise AssertionError("caption bank rows are not unit norm")
+    if not np.array_equal(bank, first):
+        raise AssertionError("the second bank pass gave different rows")
+    expect_launches(f"{prec} bank", counts, prec, 12 * n_pass)
+    log(f"[main:{prec}] captions/s " + ", ".join(f"{r:.1f} ({w})" for w, r in rates)
+        + f" ({BANK_ROWS} captions) on {card}")
+    return bank, counts
+
+
+def expect_launches(what, counts, prec, n):
+    """The path of ``prec`` ran its own kernels n times each (ln_quant once
+    inside each int8 block) and none of the other path's."""
+    want = dict.fromkeys(counts, 0)
+    if prec == "int8":
+        want.update(attn_block_int8=n, mlp_int8=n, ln_quant=2 * n)
+    else:
+        want.update(attn_block_bf16=n, mlp_bf16=n)
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def score_path(prec, opt_prec, params, clip_cfg, specs, bank, freq, images, card):
+    """make_engine under TEST.PREC ``opt_prec`` (must resolve to ``prec``),
+    three staged batches, impreds.json. Returns (engine, scores, counts)."""
     from leclip_tpu_torch.engine.config import setup_config
-    from leclip_tpu_torch.inference.pipeline import (DEFAULT_MODEL_GROUPS, build_caption_bank,
-                                                     make_engine)
-    from leclip_tpu_torch.inference.tta import build_model_spec
-    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
-    from leclip_tpu_torch.models.dense_clip import DenseFlags
-    from leclip_tpu_torch.models.prompt import build_prompt_learner
+    from leclip_tpu_torch.inference.pipeline import make_engine
+    from leclip_tpu_torch.ops import launches
     from leclip_tpu_torch.ops.ensemble import write_impreds
 
-    dev = torch.device("cuda")
+    cfg = setup_config(opts=["TEST.PREC", opt_prec, "TEST.multi_scale", "(2, 3, 4)",
+                             "TEST.use_freq", "True"])
+    engine = make_engine(cfg, params, clip_cfg, specs, caption_bank=bank, freq_stats=freq,
+                         device=DEVICE)
+    if engine.precision != prec or engine._fused != (prec == "bf16") or \
+            (engine._q8 is not None) != (prec == "int8"):
+        raise AssertionError(f"TEST.PREC {opt_prec} gave precision {engine.precision}, "
+                             f"fused {engine._fused}: expected the {prec} kernels")
+    crops = N_IMAGES * (1 + engine.n_blocks)
+    warm = list(engine.run_batches_fused_staged(iter([images])))[0]  # first-call setup
+    n_batches = 3
+    launches.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = list(engine.run_batches_fused_staged(iter([images] * n_batches), depth=2))
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    counts = launches.launch_counts()
+    log(f"[main:{prec}] TEST.PREC {opt_prec} -> {engine.precision}; {N_IMAGES} images 480x640 "
+        f"-> {crops} crops per batch; scoring launches {counts} (12 layers x {n_batches} "
+        f"batches)")
+    expect_launches(f"{prec} scoring", counts, prec, 12 * n_batches)
+    fused = outs[0]
+    if fused.shape != (N_IMAGES, 80) or not np.isfinite(fused).all():
+        raise AssertionError(f"fused scores bad: shape {fused.shape}")
+    if any(not np.array_equal(o, fused) for o in outs) or not np.allclose(warm, fused):
+        raise AssertionError("repeated batches gave different scores")
+    log(f"[main:{prec}] crop-forwards/s {n_batches * crops / score_s:.1f} ({n_batches} batches "
+        f"of {crops} crops in {score_s:.3f} s, host prep staged ahead) on {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "impreds.json")
+        write_impreds(fused, path)
+        back = np.asarray(json.load(open(path)))
+    if back.shape != (N_IMAGES, 80) or not np.allclose(back, fused):
+        raise AssertionError("impreds.json did not read back")
+    log(f"[main:{prec}] impreds.json: {back.shape[0]} rows x {back.shape[1]} classes, finite, "
+        f"read back; first row head {np.round(back[0, :4], 4).tolist()}")
+    return engine, fused, counts
+
+
+def phase_main_paths(card):
+    from leclip_tpu_torch.data.vocab import COCO_OBJECT_CATEGORIES
+    from leclip_tpu_torch.inference.pipeline import DEFAULT_MODEL_GROUPS
+    from leclip_tpu_torch.inference.tta import TTAEngine, build_model_spec
+    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
+    from leclip_tpu_torch.models.dense_clip import DenseFlags, encode_image_features
+    from leclip_tpu_torch.models.prompt import build_prompt_learner
+
+    dev = DEVICE
     clip_cfg = PRESETS["ViT-B/16"]
     params = init_clip_params(torch.Generator(device=dev).manual_seed(0), clip_cfg,
                               dtype=torch.bfloat16, device=dev)
     log(f"[main] ViT-B/16 bf16 params: vision {clip_cfg.vision_layers}x{clip_cfg.vision_width}, "
         f"text {clip_cfg.transformer_layers}x{clip_cfg.transformer_width}")
     rng = np.random.default_rng(0)
-
-    # caption bank through the fused kernels
     toks = synthetic_captions(BANK_ROWS, rng)
-    batch = 256
-    bk.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    bank = build_caption_bank(params, clip_cfg, toks, batch_size=batch, precision="bf16",
-                              device=dev)
-    torch.cuda.synchronize()
-    bank_s = time.perf_counter() - t0
-    bank_counts = bk.launch_counts()
-    n_pass = math.ceil(BANK_ROWS / batch)
-    log(f"[main] caption bank {bank.shape}: launches {bank_counts} "
-        f"(expect {12 * n_pass} each: 12 layers x {n_pass} batches)")
-    if not np.isfinite(bank).all() or bank.shape != (BANK_ROWS, clip_cfg.embed_dim):
-        raise AssertionError("caption bank not finite / wrong shape")
-    if not np.allclose(np.linalg.norm(bank, axis=-1), 1.0, atol=1e-3):
-        raise AssertionError("caption bank rows are not unit norm")
-    if any(v != 12 * n_pass for v in bank_counts.values()):
-        raise AssertionError(f"bank build did not run both kernels per layer: {bank_counts}")
-    log(f"[main] captions/s {BANK_ROWS / bank_s:.1f} ({BANK_ROWS} captions in {bank_s:.3f} s "
-        f"incl. first-call setup) on {card}")
 
     # six members over the 80 COCO classes, grouped as the launcher groups them
     specs = {}
@@ -233,55 +516,22 @@ def phase_main_path(bk, card):
                                            DenseFlags(use_evidence=evd), use_freq=use_freq)
     log(f"[main] members: {[(n, int(s.trainable['ctx'].shape[0])) for n, s in specs.items()]}")
     freq = {"adj": rng.random((80, 80)) * 50, "nums": rng.random(80) * 50 + 1}
-    cfg = setup_config(opts=["TEST.PREC", "bf16", "TEST.multi_scale", "(2, 3, 4)",
-                             "TEST.use_freq", "True"])
-    engine = make_engine(cfg, params, clip_cfg, specs, caption_bank=bank, freq_stats=freq,
-                         device=dev)
-    if not engine._fused:
-        raise AssertionError("the engine did not select the fused bf16 kernels")
     images = [rng.integers(0, 255, (480, 640, 3)).astype(np.uint8) for _ in range(N_IMAGES)]
-    crops = N_IMAGES * (1 + engine.n_blocks)
-    log(f"[main] {N_IMAGES} images 480x640 -> {crops} crops per batch")
 
-    warm = list(engine.run_batches_fused_staged(iter([images])))[0]  # first-call setup
-    n_batches = 3
-    bk.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = list(engine.run_batches_fused_staged(iter([images] * n_batches), depth=2))
-    torch.cuda.synchronize()
-    score_s = time.perf_counter() - t0
-    score_counts = bk.launch_counts()
-    log(f"[main] scoring launches {score_counts} (expect {12 * n_batches} each: 12 layers x "
-        f"{n_batches} batches)")
-    if any(v != 12 * n_batches for v in score_counts.values()):
-        raise AssertionError(f"scoring did not run both kernels per layer: {score_counts}")
-    fused = outs[0]
-    if fused.shape != (N_IMAGES, 80) or not np.isfinite(fused).all():
-        raise AssertionError(f"fused scores bad: shape {fused.shape}")
-    if any(not np.array_equal(o, fused) for o in outs) or not np.allclose(warm, fused):
-        raise AssertionError("repeated batches gave different scores")
-    log(f"[main] crop-forwards/s {n_batches * crops / score_s:.1f} ({n_batches} batches of "
-        f"{crops} crops in {score_s:.3f} s, host prep staged ahead) on {card}")
+    # ---- the bf16 path, then the default path: TEST.PREC auto -> int8
+    banks, engines, scores, bank_counts, score_counts = {}, {}, {}, {}, {}
+    for prec, opt_prec in (("bf16", "bf16"), ("int8", "auto")):
+        banks[prec], bank_counts[prec] = build_bank(prec, params, clip_cfg, toks, card)
+        engines[prec], scores[prec], score_counts[prec] = score_path(
+            prec, opt_prec, params, clip_cfg, specs, banks[prec], freq, images, card)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "impreds.json")
-        write_impreds(fused, path)
-        back = np.asarray(json.load(open(path)))
-    if back.shape != (N_IMAGES, 80) or not np.allclose(back, fused):
-        raise AssertionError("impreds.json did not read back")
-    log(f"[main] impreds.json: {back.shape[0]} rows x {back.shape[1]} classes, finite, "
-        f"read back; first row head {np.round(back[0, :4], 4).tolist()}")
-
-    # correctness on a small input: the kernels' engine against the same
-    # engine on the unfused plain path (bf16 compute on both). Image features
-    # must agree to bf16 precision; the fused scores pass through gated block
-    # fusion (max/min switched at a threshold), which turns bf16-ulp feature
-    # differences into occasional jumps, so they are held by correlation
-    from leclip_tpu_torch.inference.tta import TTAEngine
-    from leclip_tpu_torch.models.dense_clip import encode_image_features
-
-    small = dict(scales=(2,), caption_bank=torch.as_tensor(bank), crop_size=224,
+    # ---- the bf16 kernels' engine against the unfused plain path, on a small
+    # input. Image features must agree to bf16 precision; the fused scores pass
+    # through gated block fusion (max/min switched at a threshold), which turns
+    # bf16-ulp feature differences into occasional jumps, so they are held by
+    # correlation
+    engine = engines["bf16"]
+    small = dict(scales=(2,), caption_bank=torch.as_tensor(banks["bf16"]), crop_size=224,
                  compute_dtype=torch.bfloat16, device=dev, cooccurrence=engine.cooccurrence.cpu())
     one = [images[0]]
     k_eng = TTAEngine(params, clip_cfg, specs, bf16_fused=True, **small)
@@ -294,12 +544,47 @@ def phase_main_path(bk, card):
         cos_d = (fk.spatial_feats.float() * fp.spatial_feats.float()).sum(-1).min().item()
     f_k, f_p = k_eng.run_batch_fused(one), p_eng.run_batch_fused(one)
     corr = np.corrcoef(f_k.ravel(), f_p.ravel())[0, 1]
-    log(f"[main] small input (1 image, {crops_in.shape[0]} crops), fused kernels vs unfused "
+    log(f"[main:bf16] small input (1 image, {crops_in.shape[0]} crops), fused kernels vs unfused "
         f"plain path: min cosine global {cos_g:.5f}, dense {cos_d:.5f} (> 0.99); scores "
         f"corr {corr:.6f} (> 0.999), max|d| {np.abs(f_k - f_p).max():.4g}")
     if not (cos_g > 0.99 and cos_d > 0.99 and corr > 0.999 and np.isfinite(f_k).all()):
         raise AssertionError("fused engine disagrees with the plain engine")
-    return {k: bank_counts[k] + score_counts[k] for k in bank_counts}, bank_counts, score_counts
+
+    # ---- the int8 path against the bf16 path on the same input: the JAX
+    # suite's bounds (bank rows cosine > 0.995, fused scores corr > 0.99)
+    bank_cos = (banks["int8"] * banks["bf16"]).sum(-1).min()
+    e8 = engines["int8"]
+    with torch.inference_mode():
+        crops_in = e8._crops(e8.stage_batch_fused(images)).flatten(0, 1)
+        f8 = encode_image_features(e8.clip_params, clip_cfg, crops_in, DenseFlags(), q8=e8._q8)
+        fb = encode_image_features(engine.clip_params, clip_cfg, crops_in, DenseFlags(),
+                                   fused=True)
+        cos_g = (f8.global_feat.float() * fb.global_feat.float()).sum(-1).min().item()
+        cos_d = (f8.spatial_feats.float() * fb.spatial_feats.float()).sum(-1).min().item()
+    corr = np.corrcoef(scores["int8"].ravel(), scores["bf16"].ravel())[0, 1]
+    log(f"[main:int8] against the bf16 path, {crops_in.shape[0]} crops: image features min "
+        f"cosine global {cos_g:.5f} (> 0.99), dense {cos_d:.5f}; fused scores corr {corr:.6f} "
+        f"(> 0.99), max|d| {np.abs(scores['int8'] - scores['bf16']).max():.4g}; bank rows min "
+        f"cosine {bank_cos:.5f} (> 0.995)")
+    if not (cos_g > 0.99 and corr > 0.99 and bank_cos > 0.995):
+        raise AssertionError("the int8 path disagrees with the bf16 path")
+    total = {k: sum(c[p][k] for c in (bank_counts, score_counts) for p in c)
+             for k in bank_counts["bf16"]}
+    return total, bank_counts, score_counts
+
+
+KERNEL_SOURCES = {  # name: (source, file:line of the TPU kernel, its precision path)
+    "attn_block_bf16": ("leclip_tpu_torch/csrc/attn_block_bf16.cu",
+                        "leclip_tpu/ops/block_kernels.py:122", "bf16"),
+    "mlp_bf16": ("leclip_tpu_torch/csrc/mlp_bf16.cu",
+                 "leclip_tpu/ops/block_kernels.py:185", "bf16"),
+    "ln_quant": ("leclip_tpu_torch/csrc/ln_quant.cu",
+                 "leclip_tpu/ops/quant_kernels.py:65", "int8"),
+    "attn_block_int8": ("leclip_tpu_torch/csrc/attn_block_int8.cu",
+                        "leclip_tpu/ops/quant_kernels.py:160", "int8"),
+    "mlp_int8": ("leclip_tpu_torch/csrc/mlp_int8.cu",
+                 "leclip_tpu/ops/quant_kernels.py:238", "int8"),
+}
 
 
 def main() -> int:
@@ -309,6 +594,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from leclip_tpu_torch.ops import _build
     from leclip_tpu_torch.ops import block_kernels as bk
+    from leclip_tpu_torch.ops import quant_kernels as qk
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions are fp32 products
     torch.backends.cudnn.allow_tf32 = False
@@ -327,16 +613,15 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         log(f"[device] ptxas {k}: {' | '.join(regs)}")
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    kern = phase_kernels(bk, gen)
-    total, bank_counts, score_counts = phase_main_path(bk, card)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    kern = phase_kernels_bf16(bk, gen)
+    kern8 = phase_kernels_int8(qk, gen)
+    for tag in kern:
+        kern[tag].update(kern8[tag])
+    total, bank_counts, score_counts = phase_main_paths(card)
 
-    sources = {"attn_block_bf16": ("leclip_tpu_torch/csrc/attn_block_bf16.cu",
-                                   "leclip_tpu/ops/block_kernels.py:122"),
-               "mlp_bf16": ("leclip_tpu_torch/csrc/mlp_bf16.cu",
-                            "leclip_tpu/ops/block_kernels.py:185")}
     line = {"kernels": []}
-    for k, (src, replaces) in sources.items():
+    for k, (src, replaces, prec) in KERNEL_SOURCES.items():
         vit, text = kern["vit"][k], kern["text"][k]
         line["kernels"].append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
@@ -348,7 +633,8 @@ def main() -> int:
             "text_shape": "caption bank [256, 77, 512] causal",
             "text": {key: text[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                 "bound_by")},
-            "launches_bank": bank_counts[k], "launches_scoring": score_counts[k],
+            "path": f"TEST.PREC {prec}",
+            "launches_bank": bank_counts[prec][k], "launches_scoring": score_counts[prec][k],
         })
     print(card, flush=True)
     print(json.dumps(line), flush=True)

@@ -10,7 +10,9 @@ Usage:
         --caption-bank caption_bank.pkl DATASET.ROOT /data --out impreds.json
 
 Runs on the card; ``--device cpu`` runs it on the CPU explicitly. The
-per-member dump (``--save-dir``) is not ported yet."""
+precision follows ``TEST.PREC`` (engine/config.py resolve_test_precision):
+``auto`` is int8 for a gate-validated ViT on the card and bf16 otherwise.
+The per-member dump (``--save-dir``) is not ported yet."""
 
 from __future__ import annotations
 

@@ -1,0 +1,63 @@
+// Pre-LN attention sub-block with an int8 QKV projection (W8A8), for sm_90a:
+//   out = x + OutProj(MHA(int8 QKV(LN(x))))
+//
+// Replaces the TPU kernel leclip_tpu/ops/quant_kernels.py attn_block_int8
+// (_attn_block_kernel). The rows arrive already normalised and quantized
+// (xi int8 [R, D], xs fp32 [R]: the ln_quant kernel, launched by the Python
+// wrapper just before). Three launches here:
+//   1. int8_gemm<IEPI_BIAS>:  bf16(acc * (xs * s_col) + b) -> bf16 qkv [R, 3D]
+//   2. attn_core (attn_core.cuh): per (sequence, head) softmax attention -> bf16 [R, D]
+//   3. tiled_gemm<-, RESID_PLUS_ACC> (gemm.cuh): bf16((x + att @ W_out) + b)
+// Launches 2 and 3 are the bf16 block's own: the TPU kernel keeps the
+// attention core and the out-projection in bf16 too, with the same rounding
+// points (bf16 qkv, bf16 unnormalised p, fp32 sum of p, bf16 head outputs).
+// The TPU kernel holds a group of whole sequences in VMEM; here the int8
+// rows, qkv and per-head outputs go through HBM between the launches.
+//
+// Bound on the H100: 6*R*D^2 int8 operations + (2*R*D^2 + 4*B*D*pairs) bf16
+// flops over ~4*R*D + 5*D^2 bytes, far above the ridge, so tensor-core
+// operations bound it. The QKV product runs on the int8 tensor cores
+// (mma.sync m16n8k32, 128x128x128 tiles, cp.async three stages deep,
+// gemm_int8.cuh). wgmma/TMA and a single fused launch are later work.
+#include "attn_core.cuh"
+#include "gemm.cuh"
+#include "gemm_int8.cuh"
+
+using leclip::bf16;
+
+extern "C" {
+
+// Shared memory the attention-core launch needs at sequence length t and
+// head width dh (the wrapper refuses shapes above the card's 227 KB).
+size_t leclip_attn_core_smem(int t, int dh) {
+  return leclip::attn_smem((t + 31) / 32 * 32, dh);
+}
+
+// x, out: [b*t, d] bf16; xi [b*t, d] int8 and xs [b*t] fp32 from ln_quant;
+// qkv_wt: the int8 QKV weight as [3d, d] (K contiguous); qkv_s [3d] fp32;
+// qkv_b [3d], out_w [d, d] ([in, out]), out_b [d] bf16; qkv scratch
+// [b*t, 3d], att scratch [b*t, d] bf16; contiguous, on the card.
+// d % 128 == 0, d <= 1024, d / n_heads in {32, 64, 128}. Three launches on
+// `stream`; returns the first cudaError_t that is not cudaSuccess.
+int leclip_attn_block_int8(const void* x, const void* xi, const void* xs, const void* qkv_wt,
+                           const void* qkv_s, const void* qkv_b, const void* out_w,
+                           const void* out_b, void* qkv, void* att, void* out, int b, int t,
+                           int d, int n_heads, int kv_len, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = b * t;
+  bf16* qkv_b16 = static_cast<bf16*>(qkv);
+  bf16* att_b16 = static_cast<bf16*>(att);
+  cudaError_t err = leclip::launch_int8_gemm<leclip::IEPI_BIAS>(
+      static_cast<const int8_t*>(xi), static_cast<const int8_t*>(qkv_wt),
+      static_cast<const float*>(xs), nullptr, static_cast<const float*>(qkv_s),
+      static_cast<const bf16*>(qkv_b), nullptr, qkv_b16, rows, d, 3 * d, s);
+  if (err != cudaSuccess) return (int)err;
+  err = leclip::launch_attn_any(qkv_b16, att_b16, b, t, d, n_heads, kv_len, causal, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)leclip::launch_tiled_gemm<false, leclip::EPI_RESID_PLUS_ACC>(
+      att_b16, nullptr, nullptr, static_cast<const bf16*>(out_w),
+      static_cast<const bf16*>(out_b), static_cast<const bf16*>(x), static_cast<bf16*>(out),
+      rows, d, d, 0.f, s);
+}
+
+}  // extern "C"

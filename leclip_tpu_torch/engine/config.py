@@ -5,9 +5,8 @@ file is merged.
 
 Every field of the JAX package's config is kept, so its recipes and CLI
 overrides load unchanged; the training and TPU-specific fields are read by
-nothing in the port yet. ``resolve_test_precision`` carries the port's CUDA
-rule: ``auto`` → bf16 (the fused bf16 block kernels) until the int8 kernels
-are ported; an explicit ``int8`` raises."""
+nothing in the port yet. ``resolve_test_precision`` carries the JAX package's
+precision rule with a CUDA device standing where that rule says TPU."""
 
 from __future__ import annotations
 
@@ -178,8 +177,9 @@ class TestConfig:
     retrieval_topk: int = 10
     retrieval_merge: bool = True
     PREC: str = "auto"         # inference compute: auto | fp32 | bf16 | int8.
-                               # In the port 'auto' resolves to bf16 and int8
-                               # raises (resolve_test_precision); the
+                               # 'auto' resolves per backbone and device
+                               # (resolve_test_precision): int8 for a gate-
+                               # validated ViT on CUDA, else bf16; the
                                # reference runs fp32 (clip_model.float()) —
                                # set PREC fp32 for reference parity.
     block_fuse_coef: float = 1.4
@@ -302,21 +302,46 @@ def _set_typed(node: Any, leaf: str, value: Any) -> None:
     object.__setattr__(node, leaf, value)
 
 
-def resolve_test_precision(prec: str) -> str:
-    """Resolve TEST.PREC for the port: 'auto' → 'bf16' (the hand-written bf16
-    block kernels on the card); 'fp32' and 'bf16' as given; 'int8' raises
-    until the W8A8 kernels and their weight prep are ported (ROADMAP.md
-    queue 2)."""
+# Vision-tower widths whose int8 (W8A8) accuracy passed the JAX package's
+# task-level gate at real geometry (quant_gate_realwidth.json: vision 768x12
+# PASS). The port inherits that licence because its int8 arithmetic matches
+# the JAX kernels' (tests/test_torch_quant_kernels.py). ViT-L's 1024-wide
+# tower has no task-level gate and its 768-wide text tower breached the
+# bound, so ViT-L 'auto' stays bf16; an explicit int8 remains available.
+GATE_VALIDATED_INT8_VISION_WIDTHS = frozenset({768})
+
+
+def resolve_test_precision(prec: str, clip_cfg, device) -> str:
+    """Resolve TEST.PREC for a backbone on a device — the single owner of the
+    precision / backbone / device rules.
+
+    'auto' → int8 (the W8A8 kernels) for a ViT whose vision width is
+    gate-validated (GATE_VALIDATED_INT8_VISION_WIDTHS) and a multiple of 128,
+    on a CUDA device; bf16 otherwise (ResNet towers, ViT-L, the CPU, where
+    the plain int8 versions are only a reference). 'fp32' and 'bf16' as
+    given. An explicit 'int8' the engine would reject or crawl through (a
+    non-ViT backbone, a width that is no multiple of 128, the CPU) degrades
+    to bf16 with a warning; on a ViT the kernels take (e.g. ViT-L) on CUDA it
+    is honoured — the caller owns the accuracy risk. ``device`` is a
+    ``torch.device`` or its name; resolving needs no card."""
     if prec not in ("auto", "fp32", "bf16", "int8"):
         raise ValueError(f"TEST.PREC must be auto | fp32 | bf16 | int8, got {prec!r}")
-    if prec == "int8":
-        raise NotImplementedError(INT8_PENDING)
-    return "bf16" if prec == "auto" else prec
+    kind = getattr(device, "type", None) or str(device).split(":")[0]
+    is_vit = getattr(clip_cfg, "is_vit", False)
+    int8_ok = is_vit and clip_cfg.vision_width % 128 == 0 and kind == "cuda"
+    if prec == "auto":
+        return ("int8" if int8_ok and clip_cfg.vision_width in GATE_VALIDATED_INT8_VISION_WIDTHS
+                else "bf16")
+    if prec == "int8" and not int8_ok:
+        import warnings
 
-
-INT8_PENDING = ("TEST.PREC int8 is not ported yet: the W8A8 kernels "
-                "(attn_block_int8, mlp_int8) and ops/quant.py weight prep wait in "
-                "ROADMAP.md queue 2; use TEST.PREC bf16 or fp32")
+        warnings.warn(
+            "TEST.PREC int8 needs a ViT backbone with 128-multiple width on a CUDA device "
+            f"(got {'ViT' if is_vit else 'ResNet'} width "
+            f"{getattr(clip_cfg, 'vision_width', '?')} on {kind!r}) — falling back to bf16"
+        )
+        return "bf16"
+    return prec
 
 
 def default_config() -> Config:

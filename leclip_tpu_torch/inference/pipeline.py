@@ -4,8 +4,8 @@ reference's eval launcher groups them, scored over the multi-scale TTA
 pyramid with image features shared by all members, fused with fuse/fuse6 +
 per-class routing, and written as ``impreds.json``.
 
-Not ported yet (ROADMAP.md): the per-member dump path (``save_dir``), the
-int8 caption bank and the device mesh."""
+Not ported yet (ROADMAP.md): the per-member dump path (``save_dir``) and the
+device mesh."""
 
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 from ..data.loader import ImageBatcher
 from ..device import resolve_device, tree_map
 from ..engine.checkpoint import load_prompt_params
-from ..engine.config import INT8_PENDING, resolve_test_precision
+from ..engine.config import resolve_test_precision
 from ..models.clip import CLIPConfig
 from ..models.dense_clip import DenseFlags
 from ..models.prompt import build_prompt_learner
@@ -43,14 +43,35 @@ def build_caption_bank(clip_params: dict, clip_cfg: CLIPConfig, caption_tokens: 
 
     ``precision='default'``: the text tower as given (fp32, plain math).
     ``precision='bf16'``: the tower cast to bf16; on CUDA it runs the fused
-    bf16 block kernels (ops/block_kernels.py). ``'int8'`` is not ported."""
+    bf16 block kernels (ops/block_kernels.py).
+    ``precision='int8'``: the causal text tower through the W8A8 kernels
+    (ops/quant_kernels.py), its blocks quantized once here; the bank feeds
+    top-k retrieval, which is insensitive to the quantization noise. On CUDA
+    the tower is cast to bf16 first (the kernels take bf16 activations and
+    parameters)."""
     device = resolve_device(device)
     text = tree_map(lambda t: t.to(device), clip_params["text"])
+    to_bf16 = lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t  # noqa: E731
+    q8 = None
     fused = False
     if precision == "int8":
-        raise NotImplementedError(INT8_PENDING)
-    if precision == "bf16":
-        text = tree_map(lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t, text)
+        from ..ops.quant import quantize_stack_on_device
+
+        if clip_cfg.transformer_width > 512:
+            import warnings
+
+            warnings.warn(
+                f"int8 caption encoding at text width {clip_cfg.transformer_width}: the "
+                "real-geometry task gate measured 768-wide causal text BREACHING the ±0.2 "
+                "probe-mAP bound under physical outlier statistics (0.358/0.219, "
+                "quant_gate_realwidth.json) — prefer precision='bf16' for >512-wide "
+                "text towers"
+            )
+        if device.type == "cuda":
+            text = tree_map(to_bf16, text)
+        q8 = quantize_stack_on_device(text["blocks"])
+    elif precision == "bf16":
+        text = tree_map(to_bf16, text)
         fused = device.type == "cuda"
     elif precision != "default":
         raise ValueError(f"unknown precision {precision!r}")
@@ -63,7 +84,7 @@ def build_caption_bank(clip_params: dict, clip_cfg: CLIPConfig, caption_tokens: 
         for i in range(0, len(toks), batch_size):
             t = torch.as_tensor(np.asarray(toks[i: i + batch_size]), dtype=torch.long,
                                 device=device)
-            f = encode_text(text, t, clip_cfg.transformer_heads, fused=fused).float()
+            f = encode_text(text, t, clip_cfg.transformer_heads, q8=q8, fused=fused).float()
             out.append(f / torch.linalg.vector_norm(f, dim=-1, keepdim=True))
         bank = torch.cat(out)[:n].cpu().numpy()
     return bank.astype(dtype)
@@ -121,9 +142,11 @@ def make_engine(cfg, clip_params, clip_cfg, specs, caption_bank=None, freq_stats
     if freq_stats is not None and cfg.TEST.use_freq:
         cooc = normalized_cooccurrence(np.asarray(freq_stats["adj"], np.float32),
                                        np.asarray(freq_stats["nums"], np.float32))
-    prec = resolve_test_precision(cfg.TEST.PREC)
+    device = resolve_device(device)
+    prec = resolve_test_precision(cfg.TEST.PREC, clip_cfg, device)
     if prec != cfg.TEST.PREC:
-        print(f"TEST.PREC {cfg.TEST.PREC!r} resolved to {prec!r}")
+        print(f"TEST.PREC {cfg.TEST.PREC!r} resolved to {prec!r} for "
+              f"{'ViT' if clip_cfg.is_vit else 'ResNet'} backbone on {device.type}")
     return TTAEngine(
         clip_params, clip_cfg, specs, scales=cfg.TEST.multi_scale,
         caption_bank=None if caption_bank is None else torch.as_tensor(caption_bank),
@@ -133,7 +156,7 @@ def make_engine(cfg, clip_params, clip_cfg, specs, caption_bank=None, freq_stats
         block_coef=cfg.TEST.block_fuse_coef,
         crop_size=clip_cfg.image_resolution,
         compute_dtype=torch.float32 if prec == "fp32" else torch.bfloat16,
-        precision="bf16",
+        precision="int8" if prec == "int8" else "bf16",
         device=device,
     )
 

@@ -8,11 +8,14 @@ member's global/local logits (members of a group stacked on a leading axis)
 → fuse/fuse6 block fusion → per-class routing → fused [B, C] scores.
 
 With a bf16 ViT on CUDA the image tower runs the hand-written bf16 block
-kernels (``_fused``, the counterpart of the JAX engine's TPU switch).
+kernels (``_fused``, the counterpart of the JAX engine's TPU switch). With
+``precision="int8"`` the tower's blocks are quantized once at construction
+(ops/quant.py) and every block runs the W8A8 kernels (ops/quant_kernels.py)
+instead; the bf16 block kernels are then off for that engine.
 
 Not ported yet (ROADMAP.md): the device mesh and ``shard_bank``, the
-per-member dump path (``run_batch`` / ``dispatch_batch_dump``), the gather
-resizer, and the int8 precision."""
+per-member dump path (``run_batch`` / ``dispatch_batch_dump``) and the gather
+resizer."""
 
 from __future__ import annotations
 
@@ -119,23 +122,27 @@ class TTAEngine:
         device=None,
     ):
         self.device = resolve_device(device)
-        if precision != "bf16":
-            from ..engine.config import INT8_PENDING
-
-            if precision == "int8":
-                raise NotImplementedError(INT8_PENDING)
+        if precision not in ("bf16", "int8"):
             raise ValueError(f"unknown precision {precision!r}")
+        if precision == "int8" and not clip_cfg.is_vit:
+            raise ValueError("precision='int8' currently supports ViT backbones only")
+        self.precision = precision
         if bf16_fused is None:
-            bf16_fused = (clip_cfg.is_vit and compute_dtype == torch.bfloat16
-                          and self.device.type == "cuda")
-        self._fused = bool(bf16_fused) and clip_cfg.is_vit
+            bf16_fused = (precision == "bf16" and clip_cfg.is_vit
+                          and compute_dtype == torch.bfloat16 and self.device.type == "cuda")
+        self._fused = bool(bf16_fused) and precision == "bf16" and clip_cfg.is_vit
         to_dev = lambda t: t.to(self.device)  # noqa: E731
         self.clip_params = tree_map(to_dev, clip_params)
-        if self._fused:
-            # the kernels take bf16 weights: cast the image tower once
+        if self._fused or (precision == "int8" and self.device.type == "cuda"):
+            # the CUDA kernels take bf16 parameters: cast the image tower once
             self.clip_params = dict(self.clip_params)
             self.clip_params["visual"] = cast_floating(self.clip_params["visual"],
                                                        torch.bfloat16)
+        self._q8 = None
+        if precision == "int8":
+            from ..ops.quant import quantize_stack_on_device
+
+            self._q8 = quantize_stack_on_device(self.clip_params["visual"]["blocks"])
         self.clip_cfg = clip_cfg
         self.models = {
             name: spec._replace(trainable=tree_map(to_dev, spec.trainable),
@@ -249,7 +256,7 @@ class TTAEngine:
             crops = self._crops(staged)
             flat = crops.reshape((-1,) + crops.shape[2:])
             feats = encode_image_features(self.clip_params, self.clip_cfg, flat,
-                                          groups[0][1], fused=self._fused)
+                                          groups[0][1], q8=self._q8, fused=self._fused)
             if self.caption_bank is not None:
                 aug, scores = retrieval_augment(feats.global_feat, self.caption_bank, self.topk)
             else:

@@ -4,6 +4,9 @@
   pytree (numpy leaves, as ``jax.device_get`` returns them) into the port's
   nested dict of tensors and back, value for value: the port keeps the JAX
   layouts ([in, out] kernels, stacked blocks), so nothing is transposed.
+  Tuples are kept, so the int8 tree of ``quantize_block_stack`` ((int8,
+  fp32 scale) leaves) crosses too; ``from_jax_q8`` also puts its int8 weights
+  into the kernel layout of ops/quant.py.
 * ``load_torch_state_dict`` / ``convert_state_dict`` / ``load_clip_weights``
   read OpenAI CLIP checkpoints (ViT image tower and text tower).
 * ``load_prompt_checkpoint`` reads reference ``model.pth.tar`` prompt files.
@@ -28,10 +31,23 @@ def _leaf_to_torch(x, device) -> torch.Tensor:
 
 
 def from_jax_params(tree, device="cpu"):
-    """JAX param pytree (nested dicts of numpy arrays) → port params."""
+    """JAX param pytree (nested dicts / tuples of numpy arrays) → port params."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(from_jax_params(v, device) for v in tree)
     return _leaf_to_torch(tree, device)
+
+
+def from_jax_q8(tree, device="cpu"):
+    """A JAX int8 block tree (``leclip_tpu.ops.quant.quantize_block_stack``,
+    numpy leaves) → the port's, value for value, int8 weights in the kernel
+    layout the CUDA kernels read."""
+    from ..device import tree_map
+    from ..ops.quant import kernel_layout
+
+    return tree_map(lambda t: kernel_layout(t) if t.dtype == torch.int8 else t,
+                    from_jax_params(tree, device))
 
 
 def to_jax_params(params, bf16_dtype=None):
@@ -40,6 +56,8 @@ def to_jax_params(params, bf16_dtype=None):
     same bits) when given, else as exact float32."""
     if isinstance(params, dict):
         return {k: to_jax_params(v, bf16_dtype) for k, v in params.items()}
+    if isinstance(params, (tuple, list)):
+        return tuple(to_jax_params(v, bf16_dtype) for v in params)
     t = params.detach().cpu()
     if t.dtype == torch.bfloat16:
         if bf16_dtype is None:

@@ -135,10 +135,12 @@ class ImageFeatures(NamedTuple):
 
 
 def encode_image_features(clip_params: dict, clip_cfg: CLIPConfig, images: torch.Tensor,
-                          flags: DenseFlags, fused: bool = False) -> ImageFeatures:
-    """Frozen image tower → normalised global + dense features (ViT)."""
+                          flags: DenseFlags, q8: dict = None,
+                          fused: bool = False) -> ImageFeatures:
+    """Frozen image tower → normalised global + dense features (ViT).
+    ``q8``: int8 image-tower weights (ops/quant.py)."""
     global_raw, tokens = clip_encode_image(clip_params, clip_cfg, images, dense=True,
-                                           fused=fused)
+                                           q8=q8, fused=fused)
     dense = tokens.reshape(tokens.shape[0], -1, tokens.shape[-1])
     return ImageFeatures(_normalize(global_raw), _normalize(dense))
 

@@ -34,13 +34,38 @@ def _mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
 
 def residual_block(x: torch.Tensor, p: dict, n_heads: int,
                    mask: Optional[torch.Tensor] = None, kv_len=None,
-                   causal: bool = False, fused: bool = False) -> torch.Tensor:
+                   q8: Optional[dict] = None, causal: bool = False,
+                   fused: bool = False) -> torch.Tensor:
     """One pre-LN residual attention block over [B, T, D].
 
-    ``fused`` (inference only) runs the two bf16 block kernels
+    ``q8`` (inference only) is this layer's int8 weights (ops/quant.py) and
+    runs the W8A8 kernels (ops/quant_kernels.py): LN + int8 QKV + bf16
+    attention and out-projection, then the whole MLP with both products in
+    int8. ``fused`` (inference only) runs the two bf16 block kernels
     (ops/block_kernels.py); ``causal`` marks ``mask`` as the standard
-    lower-triangular mask so the kernel applies it natively. Without
-    ``fused`` the block is the unfused math."""
+    lower-triangular mask so the kernels apply it natively. Without either
+    the block is the unfused math."""
+    if q8 is not None:
+        if mask is not None and not causal:
+            raise ValueError(
+                "int8 (q8) blocks support unmasked or causal self-attention "
+                "only; arbitrary additive masks must run the bf16 path"
+            )
+        from ..ops.quant_kernels import attn_block_int8, mlp_int8
+
+        # q8's ln1/ln2 are the channel-equilibrated LN affines (quant.py
+        # _equilibrate): they REPLACE p's, paired with the rescaled kernels
+        x = attn_block_int8(
+            x, *q8["ln1"],
+            *q8["attn"]["qkv"], p["attn"]["qkv_bias"],
+            p["attn"]["out_kernel"], p["attn"]["out_bias"],
+            n_heads, kv_len=kv_len, causal=causal,
+        )
+        return mlp_int8(
+            x, *q8["ln2"],
+            *q8["mlp"]["fc"], p["mlp"]["fc_bias"],
+            *q8["mlp"]["proj"], p["mlp"]["proj_bias"],
+        )
     if fused and (mask is None or causal):
         from ..ops.block_kernels import attn_block_bf16, mlp_bf16
 
@@ -60,21 +85,27 @@ def residual_block(x: torch.Tensor, p: dict, n_heads: int,
     return _mlp(x, p)
 
 
-def layer_params(stacked: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked block pytree."""
+def layer_params(stacked, i: int):
+    """Layer ``i`` of a stacked block pytree (nested dicts and tuples)."""
     if isinstance(stacked, dict):
         return {k: layer_params(v, i) for k, v in stacked.items()}
+    if isinstance(stacked, (tuple, list)):
+        return tuple(layer_params(v, i) for v in stacked)
     return stacked[i]
 
 
 def run_transformer(x: torch.Tensor, stacked: dict, n_heads: int,
                     mask: Optional[torch.Tensor] = None, kv_len: Optional[int] = None,
-                    causal: bool = False, fused: bool = False) -> torch.Tensor:
-    """Apply the L stacked residual blocks in order."""
+                    q8: Optional[dict] = None, causal: bool = False,
+                    fused: bool = False) -> torch.Tensor:
+    """Apply the L stacked residual blocks in order. ``q8`` is the stacked
+    int8 weight pytree of ops/quant.py ``quantize_block_stack``; layer ``i``
+    of it goes with layer ``i`` of ``stacked``."""
     n_layers = stacked["ln_1"]["scale"].shape[0]
     for i in range(n_layers):
-        x = residual_block(x, layer_params(stacked, i), n_heads, mask=mask,
-                           kv_len=kv_len, causal=causal, fused=fused)
+        x = residual_block(x, layer_params(stacked, i), n_heads, mask=mask, kv_len=kv_len,
+                           q8=None if q8 is None else layer_params(q8, i),
+                           causal=causal, fused=fused)
     return x
 
 

@@ -4,14 +4,16 @@ Each ``csrc/*.cu`` source is compiled by nvcc for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ctypes. Builds happen at
 first use (or all at once, in parallel, through :func:`build_all`) into
 ``leclip_tpu_torch/_build/``, which git ignores. Library names carry a hash
-of the sources and flags, so an edited source is rebuilt and never loaded
-stale. Nothing here runs at import time."""
+of the flags, the source and every header it includes (followed through
+``#include "..."``), so an edited source or header is rebuilt and never
+loaded stale. Nothing here runs at import time."""
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -40,6 +42,16 @@ KERNELS: Dict[str, tuple] = {
     "mlp_bf16": ("mlp_bf16.cu", {
         "leclip_mlp_bf16": [_P] * 9 + [_I] * 3 + [_F, _P],
     }),
+    "ln_quant": ("ln_quant.cu", {
+        "leclip_ln_quant": [_P] * 5 + [_I] * 2 + [_F, _P],
+    }),
+    "attn_block_int8": ("attn_block_int8.cu", {
+        "leclip_attn_block_int8": [_P] * 11 + [_I] * 6 + [_P],
+        "leclip_attn_core_smem": [_I, _I],
+    }),
+    "mlp_int8": ("mlp_int8.cu", {
+        "leclip_mlp_int8": [_P] * 12 + [_I] * 3 + [_P],
+    }),
 }
 
 _lock = threading.Lock()
@@ -58,10 +70,27 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(src: str) -> list:
+    """``src`` and every csrc header it includes, directly or through another
+    header, in a fixed order."""
+    seen, todo = [], [src]
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += sorted(_INCLUDE.findall((CSRC / f).read_text()), reverse=True)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
     src, _ = KERNELS[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (src, "gemm.cuh"):
+    for f in source_files(src):
+        h.update(f.encode())
         h.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -22,7 +22,8 @@ fuse that traffic away.
 
 Each wrapper takes the plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises; it never falls back. ``launches``
-on each wrapper counts the calls that launched the kernel.
+on each wrapper counts the calls that launched the kernel (ops/launches.py
+reads and resets the counts of every kernel).
 
 The TPU kernels' VMEM gates (``fits_vmem_*``) have no counterpart: the CUDA
 kernels take widths D % 128 == 0 up to 1024 (every CLIP tower: 512, 640,
@@ -47,25 +48,19 @@ def _ln32(x32: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
     return y * scale.float() + bias.float()
 
 
-def attn_block_bf16_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
-                          n_heads: int, kv_len=None, causal: bool = False,
-                          eps: float = 1e-5) -> torch.Tensor:
-    """The TPU kernel's arithmetic in plain PyTorch, same rounding points:
-    qkv rounded to x.dtype; fp32 scores scaled by dh^-0.5 AFTER QKᵀ plus a
-    −1e30 bias on masked keys; p = exp(s − max) rounded unnormalised; the
-    denominator is Σp in fp32 (the ones-column of p·[V|1]); each head's output
-    rounded; fp32 out-proj; the residual sum rounded once."""
-    b, t, d = x.shape
-    if kv_len is None:
-        kv_len = t
+def attention_plain(qkv: torch.Tensor, b: int, t: int, n_heads: int, kv_len: int,
+                    causal: bool) -> torch.Tensor:
+    """The attention core shared by the bf16 and int8 blocks, on packed qkv
+    [B·T, 3D] in its working dtype: fp32 scores scaled by dh^-0.5 AFTER QKᵀ
+    plus a −1e30 bias on masked keys; p = exp(s − max) rounded unnormalised;
+    the denominator is Σp in fp32 (the ones-column of p·[V|1]); each head's
+    output rounded. Returns the packed heads [B·T, D]."""
+    d = qkv.shape[-1] // 3
     dh = d // n_heads
-    dt = x.dtype
-    x32 = x.float()
-    y = _ln32(x32, ln_scale, ln_bias, eps)
-    qkv = (y.to(dt).reshape(b * t, d).float() @ qkv_w.float() + qkv_b.float()).to(dt)
+    dt = qkv.dtype
     qkv = qkv.reshape(b, t, 3, n_heads, dh).permute(2, 0, 3, 1, 4)  # [3, B, H, T, dh]
     q, k, v = qkv[0].float(), qkv[1].float(), qkv[2].float()
-    col = torch.arange(t, device=x.device)
+    col = torch.arange(t, device=qkv.device)
     valid = col[None, :] < kv_len
     if causal:
         valid = valid & (col[None, :] <= col[:, None])
@@ -74,7 +69,23 @@ def attn_block_bf16_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
     p = torch.exp(sc - sc.amax(-1, keepdim=True)).to(dt).float()
     num = p @ v
     den = p.sum(-1, keepdim=True)
-    att = (num / den).to(dt).permute(0, 2, 1, 3).reshape(b * t, d)
+    return (num / den).to(dt).permute(0, 2, 1, 3).reshape(b * t, d)
+
+
+def attn_block_bf16_plain(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
+                          n_heads: int, kv_len=None, causal: bool = False,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """The TPU kernel's arithmetic in plain PyTorch, same rounding points:
+    LN(x) and qkv rounded to x.dtype; the attention core of
+    :func:`attention_plain`; fp32 out-proj; the residual sum rounded once."""
+    b, t, d = x.shape
+    if kv_len is None:
+        kv_len = t
+    dt = x.dtype
+    x32 = x.float()
+    y = _ln32(x32, ln_scale, ln_bias, eps)
+    qkv = (y.to(dt).reshape(b * t, d).float() @ qkv_w.float() + qkv_b.float()).to(dt)
+    att = attention_plain(qkv, b, t, n_heads, kv_len, causal)
     out = (att.float() @ out_w.float()).reshape(b, t, d)
     return (x32 + out + out_b.float()).to(dt)
 
@@ -98,9 +109,9 @@ def mlp_bf16_plain(x, ln_scale, ln_bias, fc_w, fc_b, pj_w, pj_b,
 # --------------------------------- wrappers ----------------------------------
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype}")
+def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.bfloat16) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if tuple(t.shape) != tuple(shape):
@@ -199,12 +210,3 @@ def mlp_bf16(x, ln_scale, ln_bias, fc_w, fc_b, pj_w, pj_b,
 
 
 mlp_bf16.launches = 0
-
-
-def reset_launch_counts() -> None:
-    attn_block_bf16.launches = 0
-    mlp_bf16.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"attn_block_bf16": attn_block_bf16.launches, "mlp_bf16": mlp_bf16.launches}

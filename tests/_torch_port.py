@@ -2,8 +2,10 @@
 JAX pytrees to the port and build OpenAI-layout state dicts from them."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
+from leclip_tpu.models.transformer import init_block_stack
 from leclip_tpu_torch.models.convert import from_jax_params
 
 
@@ -59,3 +61,23 @@ def leaves(tree, prefix=""):
             yield from leaves(v, f"{prefix}/{k}")
     else:
         yield prefix, tree
+
+
+def block_stack(width, layers, seed, dtype="fp32", outlier=None):
+    """A JAX block stack (numpy leaves) with non-trivial LN affines and
+    biases; ``outlier`` multiplies the LN gains of channels 5, 17, 42."""
+    rng = np.random.default_rng(seed)
+    blocks = jax.device_get(init_block_stack(jax.random.PRNGKey(seed), layers, width))
+    gain = np.ones((layers, width), np.float32)
+    if outlier:
+        gain[:, [5, 17, 42]] = outlier
+    for ln in ("ln_1", "ln_2"):
+        blocks[ln]["scale"] = ((1 + 0.1 * rng.standard_normal((layers, width))) * gain
+                               ).astype(np.float32)
+        blocks[ln]["bias"] = (0.1 * rng.standard_normal((layers, width))).astype(np.float32)
+    for grp, key, n in (("attn", "qkv_bias", 3 * width), ("attn", "out_bias", width),
+                        ("mlp", "fc_bias", 4 * width), ("mlp", "proj_bias", width)):
+        blocks[grp][key] = (0.02 * rng.standard_normal((layers, n))).astype(np.float32)
+    if dtype == "bf16":
+        blocks = jax.device_get(jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), blocks))
+    return blocks

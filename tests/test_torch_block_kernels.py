@@ -17,6 +17,7 @@ from leclip_tpu.models import transformer as jtf
 from leclip_tpu.ops import block_kernels as jbk
 from leclip_tpu_torch.models import transformer as ttf
 from leclip_tpu_torch.ops import block_kernels as tbk
+from leclip_tpu_torch.ops import launches
 
 torch.set_num_threads(2)
 
@@ -94,11 +95,12 @@ def test_pad_keys_do_not_leak():
 
 
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
-    tbk.reset_launch_counts()
+    launches.reset_launch_counts()
     x, attn, mlp = _inputs(1, 8, 64)
     tbk.attn_block_bf16(torch.tensor(x), *[torch.tensor(a) for a in attn], 2)
     tbk.mlp_bf16(torch.tensor(x), *[torch.tensor(a) for a in mlp])
-    assert tbk.launch_counts() == {"attn_block_bf16": 0, "mlp_bf16": 0}
+    counts = launches.launch_counts()
+    assert counts["attn_block_bf16"] == 0 and counts["mlp_bf16"] == 0
 
 
 def _block(d, seed):

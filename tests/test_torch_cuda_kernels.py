@@ -5,13 +5,24 @@ imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerance: kernel and plain version round to bf16 at the same points and
-differ only in fp32 summation order, so |Δ| ≤ 4 bf16 ulps of max(1, |ref|)."""
+Tolerance, bf16 kernels: kernel and plain version round to bf16 at the same
+points and differ only in fp32 summation order, so |Δ| ≤ 4 bf16 ulps of
+max(1, |ref|). int8 kernels: integer sums are exact and the fp32 epilogues
+run the same operations in the same order, so the only difference comes from
+the LayerNorm statistics (another summation order) tipping a value across a
+.5 boundary: ``ln_quant`` codes equal but for at most 1e-4 of them, each off
+by exactly 1, scales 1e-6 relative; block outputs within 4 bf16 ulps on all
+but at most 1e-3 of the rows (those a flipped code touches) and nowhere
+beyond 16 (measured at the ViT-B/16 shape on an NVIDIA H100 80GB HBM3 at
+700.00 W: 4e-7 of the codes, 2.5e-5 of the MLP's rows, 6.5 ulps)."""
 
 import pytest
 import torch
 
+from leclip_tpu_torch.models.transformer import init_block_stack, layer_params
 from leclip_tpu_torch.ops import block_kernels as bk
+from leclip_tpu_torch.ops import quant_kernels as qk
+from leclip_tpu_torch.ops.quant import kernel_layout, quantize_block_stack
 
 pytestmark = pytest.mark.cuda
 
@@ -78,3 +89,108 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         bk.attn_block_bf16(x.transpose(0, 1), *attn, 2)
     with pytest.raises(ValueError):
         bk.attn_block_bf16(rn(2, 8, 96), *[a[..., :96] for a in attn], 2)
+
+
+# ------------------------------ int8 kernels --------------------------------
+
+
+def _int8_layer(card, d, seed):
+    """One quantized layer from seeded bf16 blocks with outlier LN channels:
+    (rn, ln1 affine, attention args, MLP args)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=card) * std).bfloat16()
+
+    blocks = init_block_stack(g, 1, d, dtype=torch.bfloat16, device=card)
+    gain = torch.ones(d, device=card)
+    gain[[5, 17, 42]] = 10.0
+    for ln in ("ln_1", "ln_2"):
+        blocks[ln]["scale"] = ((1 + rn(1, d, std=0.1).float()) * gain).bfloat16()
+        blocks[ln]["bias"] = rn(1, d, std=0.1)
+    for grp, key, n in (("attn", "qkv_bias", 3 * d), ("attn", "out_bias", d),
+                        ("mlp", "fc_bias", 4 * d), ("mlp", "proj_bias", d)):
+        blocks[grp][key] = rn(1, n, std=0.02)
+    q8, p = layer_params(quantize_block_stack(blocks), 0), layer_params(blocks, 0)
+    attn = (*q8["ln1"], *q8["attn"]["qkv"], p["attn"]["qkv_bias"], p["attn"]["out_kernel"],
+            p["attn"]["out_bias"])
+    mlp = (*q8["ln2"], *q8["mlp"]["fc"], p["mlp"]["fc_bias"], *q8["mlp"]["proj"],
+           p["mlp"]["proj_bias"])
+    return rn, q8["ln1"], attn, mlp
+
+
+def _close_int8(out, ref):
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    d = out.shape[-1]
+    ulps = ((out.float() - ref.float()).abs() * 2.0 ** 8
+            / ref.float().abs().clamp(min=1.0)).reshape(-1, d)
+    assert (ulps > 4).any(-1).float().mean().item() <= 1e-3 and ulps.max().item() <= 16, \
+        ulps.max().item()
+
+
+@pytest.mark.parametrize("shape,d", [((610, 200), 768), ((9, 77), 512), ((13,), 128),
+                                     ((3, 100), 1024), ((1, 5), 640)])
+def test_ln_quant_kernel_matches_plain(card, shape, d):
+    rn, ln1, _, _ = _int8_layer(card, d, 3)
+    x = rn(*shape, d)
+    before = qk.ln_quant.launches
+    xi, xs = qk.ln_quant(x, *ln1)
+    assert qk.ln_quant.launches == before + 1
+    ri, rs = qk.ln_quant_plain(x, *ln1)
+    torch.cuda.synchronize()
+    assert xi.dtype == torch.int8 and xi.shape == x.shape and xs.shape == shape + (1,)
+    diff = (xi.int() - ri.int()).abs()
+    assert diff.max().item() <= 1 and (diff != 0).float().mean().item() <= 1e-4
+    torch.testing.assert_close(xs, rs, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("b,t,d,heads,kv_len,causal", [
+    (5, 200, 768, 12, 197, False),   # ViT-B/16 crops
+    (9, 77, 512, 8, 77, True),       # caption-bank text tower
+    (3, 17, 128, 4, 13, False),      # ragged rows, short sequence, head width 32
+    (2, 264, 1024, 16, 257, False),  # ViT-L/14 width
+    (3, 40, 256, 2, 40, True),       # head width 128, causal
+])
+def test_attn_block_int8_kernel_matches_plain(card, b, t, d, heads, kv_len, causal):
+    rn, _, attn, _ = _int8_layer(card, d, 4)
+    x = rn(b, t, d)
+    before = qk.attn_block_int8.launches, qk.ln_quant.launches
+    out = qk.attn_block_int8(x, *attn, heads, kv_len=kv_len, causal=causal)
+    # the block's first launch is the ln_quant kernel, through its wrapper
+    assert (qk.attn_block_int8.launches, qk.ln_quant.launches) == (before[0] + 1, before[1] + 1)
+    _close_int8(out, qk.attn_block_int8_plain(x, *attn, heads, kv_len=kv_len, causal=causal))
+
+
+@pytest.mark.parametrize("rows,d", [(1000, 768), (77 * 9, 512), (13, 128), (300, 1024),
+                                    (129, 640)])
+def test_mlp_int8_kernel_matches_plain(card, rows, d):
+    rn, _, _, mlp = _int8_layer(card, d, 5)
+    x = rn(rows, d)
+    before = qk.mlp_int8.launches
+    out = qk.mlp_int8(x, *mlp)
+    assert qk.mlp_int8.launches == before + 1
+    _close_int8(out, qk.mlp_int8_plain(x, *mlp))
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(card):
+    rn, ln1, attn, mlp = _int8_layer(card, 128, 6)
+    x = rn(2, 8, 128)
+    with pytest.raises(TypeError):                      # fp32 activations
+        qk.mlp_int8(x.float(), *mlp)
+    with pytest.raises(TypeError):
+        qk.ln_quant(x.float(), *ln1)
+    with pytest.raises(ValueError):                     # not contiguous
+        qk.attn_block_int8(x.transpose(0, 1), *attn, 2)
+    with pytest.raises(ValueError):                     # width no multiple of 128
+        qk.ln_quant(rn(2, 8, 96), ln1[0][:96], ln1[1][:96])
+    with pytest.raises(ValueError, match="kernel layout"):  # row-major int8 weight
+        qk.mlp_int8(x, mlp[0], mlp[1], mlp[2].contiguous(), *mlp[3:])
+    with pytest.raises(TypeError):                      # weight not int8
+        qk.attn_block_int8(x, attn[0], attn[1], attn[2].bfloat16(), *attn[3:], 2)
+    with pytest.raises(ValueError):                     # kv_len out of range
+        qk.attn_block_int8(x, *attn, 2, kv_len=9)
+    # the layout helper is what the refusal names
+    fixed = kernel_layout(mlp[2].contiguous())
+    torch.testing.assert_close(qk.mlp_int8(x, mlp[0], mlp[1], fixed, *mlp[3:]),
+                               qk.mlp_int8(x, *mlp), rtol=0, atol=0)
