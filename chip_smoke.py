@@ -4,12 +4,14 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device: card name, power limit, and the nvcc build of every kernel;
-  2. kernels: each of the five hand-written kernels (attn_block_bf16,
-     mlp_bf16, ln_quant, attn_block_int8, mlp_int8) against its plain PyTorch
-     version on the card at the main paths' shapes (ViT-B/16 crops,
-     caption-bank text), with CUDA-event timings, a PyTorch-ops yardstick and
-     the roofline bound;
-  3. the two main paths at full ViT-B/16 width (12x768 vision, 12x512 text,
+  2. kernels: each of the seven hand-written kernels (attn_block_bf16,
+     mlp_bf16, ln_quant, attn_block_int8, mlp_int8, resident_attention,
+     flash_attention) against its plain PyTorch version on the card at the
+     main paths' shapes (ViT-B/16 crops, caption-bank text; the attention
+     kernels also at ViT-L/14's 264 tokens, in fp32 and bf16), with
+     CUDA-event timings, a PyTorch-ops yardstick and the roofline bound; and
+     resident_attention's gradient against autograd through its reference;
+  3. the main paths at full ViT-B/16 width (12x768 vision, 12x512 text,
      seeded random bf16 weights), TEST.PREC bf16 and then TEST.PREC auto,
      which must resolve to int8 on the card: a caption bank of 8,192 rows
      built through the kernels, a six-member ensemble over the 80 COCO
@@ -18,7 +20,13 @@ Phases (any failure exits non-zero and prints no result line):
      that each path ran its own kernels in every layer and none of the other
      path's; impreds.json is written and read back; the bf16 engine is held
      against the unfused plain path on a small input, and the int8 engine and
-     bank against the bf16 ones.
+     bank against the bf16 ones;
+  4. the unfused paths on the same weights in fp32: TEST.PREC fp32 (the
+     reference-parity precision; fp32 caption bank, fp32 prompt features),
+     whose image tower runs resident_attention in every layer, and one batch
+     with DenseFlags(attention_impl="pallas"), which runs flash_attention in
+     every layer of the image tower and of the prompt-feature text pass; both
+     held against an attention_impl="xla" plain fp32 engine.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 
@@ -382,6 +390,139 @@ def phase_kernels_int8(qk, gen):
     return res
 
 
+# ---------------------------- attention kernels -----------------------------
+
+FP32_ATOL = 2e-5  # fp32 kernels on unit-scale inputs: fp32 sums in another order, no TF32
+# bf16 attention outputs sit mostly at |x| ~ 0.1-0.3, so their ulps are taken
+# of |ref| itself, floored at 2^-4 where an output nears zero; a p rounded
+# across a bf16 boundary (its fp32 score summed in another order) moves o by
+# 2^-8 (p/l) |v - o|, which scales with |v| and not |o| and is largest in rows
+# with few keys (early causal rows): such outputs, at most ATTN_BF16_TAIL of
+# them, are held to 2 ulps of max(1, |ref|) instead
+ATTN_BF16_FLOOR = 2.0 ** -4
+ATTN_BF16_TAIL = 1e-5
+
+
+def check_attn(name, out, ref):
+    """fp32 within FP32_ATOL absolute; bf16 within 4 bf16 ulps of
+    max(|ref|, 2^-4) on all but ATTN_BF16_TAIL of the outputs, and within 2
+    ulps of max(1, |ref|) everywhere."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    if out.dtype == torch.float32:
+        log(f"  {name}: max|kernel - plain| = {err:.6g} (tolerance {FP32_ATOL:g} absolute on "
+            "unit-scale inputs; reason: fp32 sums in another order, no TF32)")
+        ok = err <= FP32_ATOL
+    else:
+        rel = diff / (2.0 ** -8 * ref.float().abs().clamp(min=ATTN_BF16_FLOOR))
+        tail = (rel > 4).float().mean().item()
+        ulps_1 = (diff / (2.0 ** -8 * ref.float().abs().clamp(min=1.0))).max().item()
+        log(f"  {name}: max|kernel - plain| = {err:.6g}; {rel.max().item():.3g} bf16 ulps of "
+            f"max(|ref|, 2^-4), {tail:.3g} of outputs beyond 4 (tolerance {ATTN_BF16_TAIL:g}); "
+            f"{ulps_1:.3g} ulps of max(1, |ref|) (tolerance 2); reason: same bf16 rounding "
+            "points, different fp32 accumulation order")
+        ok = tail <= ATTN_BF16_TAIL and ulps_1 <= 2
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version (max {err})")
+    return err
+
+
+def lib_sdpa(q, k, v, kv_len, causal):
+    """Yardstick: one PyTorch SDPA call with the same mask (pad keys as a
+    boolean key mask); never used by the port."""
+    t = q.shape[-2]
+    mask = None
+    if not causal and kv_len < t:
+        mask = (torch.arange(t, device=q.device) < kv_len)[None, None, None, :]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=causal)
+
+
+def _heads(y, heads):
+    b, t, w = y.shape
+    return y.reshape(b, t, heads, w // heads).transpose(1, 2)
+
+
+ATTN_SHAPES = {  # name: (batch, tokens, heads, kv_len, causal)
+    "vit": (N_IMAGES * 305, 200, 12, 197, False),   # ViT-B/16 image tower
+    "text": (256, 77, 8, 77, True),                 # text tower (flash only: causal)
+    "vitl": (64, 264, 16, 257, False),              # ViT-L/14: two key blocks of 256
+}
+
+
+def phase_kernels_attention(fa, gen):
+    """resident_attention and flash_attention against their plain versions
+    on q/k/v that are the three thirds of one packed qkv buffer, as the
+    unfused path hands them over, in fp32 and bf16; and resident_attention's
+    gradient against autograd through its reference."""
+    from leclip_tpu_torch.ops.attention import causal_mask
+
+    res = {"resident_attention": {}, "flash_attention": {}}
+    for tag, (b, t, heads, kv_len, causal) in ATTN_SHAPES.items():
+        w = 64 * heads
+        for dt in (torch.float32, torch.bfloat16):
+            key = f"{tag} {'fp32' if dt == torch.float32 else 'bf16'}"
+            es = 4 if dt == torch.float32 else 2
+            peak = PEAK_FP32_FLOPS if dt == torch.float32 else PEAK_BF16_FLOPS
+            qkv = torch.randn(b, t, 3 * w, generator=gen, device=DEVICE).to(dt)
+            q, k, v = qkv.split(w, dim=-1)
+            qh, kh, vh = (_heads(y, heads) for y in (q, k, v))
+            log(f"[kernels] attention {key}: q/k/v [{b}, {t}, {w}] ({heads} heads of 64), "
+                f"kv_len {kv_len}, causal {causal}")
+            lib_ms = cuda_ms(lambda: lib_sdpa(qh, kh, vh, kv_len, causal), 10)
+            if not causal:
+                err = check_attn("resident_attention",
+                                 fa.resident_attention(q, k, v, heads, kv_len),
+                                 fa.resident_attention_plain(q, k, v, heads, kv_len))
+                bnd = bound_s(4 * b * heads * t * kv_len * 64 / peak, 4 * b * t * w * es)
+                res["resident_attention"][key] = dict(
+                    max_abs_err=err,
+                    ms=cuda_ms(lambda: fa.resident_attention(q, k, v, heads, kv_len), 10),
+                    plain_ms=cuda_ms(lambda: fa.resident_attention_plain(q, k, v, heads, kv_len),
+                                     3),
+                    library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1])
+            mask = (causal_mask(t, DEVICE) if causal else
+                    torch.where(torch.arange(t, device=DEVICE) < kv_len, 0.0, -1e30))
+            err = check_attn("flash_attention", fa.flash_attention(qh, kh, vh, mask=mask),
+                             fa.flash_attention_plain(qh, kh, vh, mask=mask))
+            pairs = t * (t + 1) / 2 if causal else t * t
+            bnd = bound_s(4 * b * heads * pairs * 64 / peak, 4 * b * t * w * es + 4 * t * t)
+            res["flash_attention"][key] = dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: fa.flash_attention(qh, kh, vh, mask=mask), 10),
+                plain_ms=cuda_ms(lambda: fa.flash_attention_plain(qh, kh, vh, mask=mask), 3),
+                library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1])
+            for name, rows in res.items():
+                if key in rows:
+                    r = rows[key]
+                    log(f"  {name} [{key}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+                        f"ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                        f"({r['bound_by']})")
+            del qkv, q, k, v, qh, kh, vh, mask
+            torch.cuda.empty_cache()
+
+    # the backward pass recomputes packed_attention_reference, so its VJP must
+    # equal autograd's through the reference up to the library's own sums
+    b, t, heads, kv_len = 8, 200, 12, 197
+    q, k, v = (torch.randn(b, t, 64 * heads, generator=gen, device=DEVICE).requires_grad_()
+               for _ in range(3))
+    cot = torch.randn(b, t, 64 * heads, generator=gen, device=DEVICE)
+    got = torch.autograd.grad((fa.resident_attention(q, k, v, heads, kv_len) * cot).sum(),
+                              (q, k, v))
+    want = torch.autograd.grad(
+        (fa.packed_attention_reference(q, k, v, heads, kv_len) * cot).sum(), (q, k, v))
+    g_err = max((a - r).abs().max().item() for a, r in zip(got, want))
+    log(f"[kernels] resident_attention backward [{b}, {t}, {64 * heads}] fp32, kv_len {kv_len}: "
+        f"max|grad - autograd through packed_attention_reference| = {g_err:.3g} (tolerance "
+        "1e-6; reason: the backward recomputes that reference, so only the library's sums "
+        "could differ)")
+    if not all(torch.isfinite(a).all() for a in got) or g_err > 1e-6:
+        raise AssertionError("resident_attention: gradient disagrees with autograd")
+    return res
+
+
 def synthetic_captions(n, gen_np):
     """[n, 77] token rows: SOT, 5-30 random BPE ids, EOT (the highest id)."""
     toks = np.zeros((n, 77), np.int32)
@@ -395,7 +536,9 @@ def synthetic_captions(n, gen_np):
 
 def build_bank(prec, params, clip_cfg, toks, card):
     """The caption bank through the kernels of precision ``prec``, first call
-    and a warm second pass. Returns (bank, launch counts of the first call)."""
+    and a warm second pass. Returns (bank, launch counts of the first call).
+    For "fp32" it is the bank CLI's default precision: the fp32 tower as
+    given, whose causal attention takes the plain route (no kernel)."""
     from leclip_tpu_torch.inference.pipeline import build_caption_bank
     from leclip_tpu_torch.ops import launches
 
@@ -406,7 +549,8 @@ def build_bank(prec, params, clip_cfg, toks, card):
         launches.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        bank = build_caption_bank(params, clip_cfg, toks, batch_size=batch, precision=prec,
+        bank = build_caption_bank(params, clip_cfg, toks, batch_size=batch,
+                                  precision="default" if prec == "fp32" else prec,
                                   device=DEVICE)
         torch.cuda.synchronize()
         rates.append((which, BANK_ROWS / (time.perf_counter() - t0)))
@@ -420,20 +564,25 @@ def build_bank(prec, params, clip_cfg, toks, card):
         raise AssertionError("caption bank rows are not unit norm")
     if not np.array_equal(bank, first):
         raise AssertionError("the second bank pass gave different rows")
-    expect_launches(f"{prec} bank", counts, prec, 12 * n_pass)
+    expect_launches(f"{prec} bank", counts, "plain" if prec == "fp32" else prec, 12 * n_pass)
     log(f"[main:{prec}] captions/s " + ", ".join(f"{r:.1f} ({w})" for w, r in rates)
         + f" ({BANK_ROWS} captions) on {card}")
     return bank, counts
 
 
-def expect_launches(what, counts, prec, n):
-    """The path of ``prec`` ran its own kernels n times each (ln_quant once
-    inside each int8 block) and none of the other path's."""
+PATH_KERNELS = {  # path: launches of each of its kernels per layer
+    "bf16": {"attn_block_bf16": 1, "mlp_bf16": 1},
+    "int8": {"attn_block_int8": 1, "mlp_int8": 1, "ln_quant": 2},  # ln_quant inside each block
+    "fp32": {"resident_attention": 1},
+    "pallas": {"flash_attention": 1},
+    "plain": {},
+}
+
+
+def expect_launches(what, counts, path, n):
+    """The kernels of ``path`` ran in each of n layers and no other kernel ran."""
     want = dict.fromkeys(counts, 0)
-    if prec == "int8":
-        want.update(attn_block_int8=n, mlp_int8=n, ln_quant=2 * n)
-    else:
-        want.update(attn_block_bf16=n, mlp_bf16=n)
+    want.update({k: m * n for k, m in PATH_KERNELS[path].items()})
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 
@@ -450,10 +599,13 @@ def score_path(prec, opt_prec, params, clip_cfg, specs, bank, freq, images, card
                              "TEST.use_freq", "True"])
     engine = make_engine(cfg, params, clip_cfg, specs, caption_bank=bank, freq_stats=freq,
                          device=DEVICE)
-    if engine.precision != prec or engine._fused != (prec == "bf16") or \
-            (engine._q8 is not None) != (prec == "int8"):
-        raise AssertionError(f"TEST.PREC {opt_prec} gave precision {engine.precision}, "
-                             f"fused {engine._fused}: expected the {prec} kernels")
+    want = {"bf16": ("bf16", True, False, torch.bfloat16),    # (precision, fused, q8, dtype)
+            "int8": ("int8", False, True, torch.bfloat16),
+            "fp32": ("bf16", False, False, torch.float32)}[prec]
+    got = (engine.precision, engine._fused, engine._q8 is not None, engine.compute_dtype)
+    if got != want:
+        raise AssertionError(f"TEST.PREC {opt_prec} gave (precision, fused, q8, compute dtype) "
+                             f"{got}: expected {want}, the {prec} path")
     crops = N_IMAGES * (1 + engine.n_blocks)
     warm = list(engine.run_batches_fused_staged(iter([images])))[0]  # first-call setup
     n_batches = 3
@@ -464,7 +616,8 @@ def score_path(prec, opt_prec, params, clip_cfg, specs, bank, freq, images, card
     torch.cuda.synchronize()
     score_s = time.perf_counter() - t0
     counts = launches.launch_counts()
-    log(f"[main:{prec}] TEST.PREC {opt_prec} -> {engine.precision}; {N_IMAGES} images 480x640 "
+    log(f"[main:{prec}] TEST.PREC {opt_prec} -> engine precision {engine.precision}, compute "
+        f"{str(engine.compute_dtype).split('.')[-1]}; {N_IMAGES} images 480x640 "
         f"-> {crops} crops per batch; scoring launches {counts} (12 layers x {n_batches} "
         f"batches)")
     expect_launches(f"{prec} scoring", counts, prec, 12 * n_batches)
@@ -486,37 +639,59 @@ def score_path(prec, opt_prec, params, clip_cfg, specs, bank, freq, images, card
     return engine, fused, counts
 
 
-def phase_main_paths(card):
+def build_members(params, clip_cfg, dtype, attention_impl="auto"):
+    """Six members over the 80 COCO classes, grouped as the launcher groups
+    them; their prompt features are encoded here (the prompt-feature pass)."""
     from leclip_tpu_torch.data.vocab import COCO_OBJECT_CATEGORIES
     from leclip_tpu_torch.inference.pipeline import DEFAULT_MODEL_GROUPS
-    from leclip_tpu_torch.inference.tta import TTAEngine, build_model_spec
-    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
-    from leclip_tpu_torch.models.dense_clip import DenseFlags, encode_image_features
+    from leclip_tpu_torch.inference.tta import build_model_spec
+    from leclip_tpu_torch.models.dense_clip import DenseFlags
     from leclip_tpu_torch.models.prompt import build_prompt_learner
 
-    dev = DEVICE
-    clip_cfg = PRESETS["ViT-B/16"]
-    params = init_clip_params(torch.Generator(device=dev).manual_seed(0), clip_cfg,
-                              dtype=torch.bfloat16, device=dev)
-    log(f"[main] ViT-B/16 bf16 params: vision {clip_cfg.vision_layers}x{clip_cfg.vision_width}, "
-        f"text {clip_cfg.transformer_layers}x{clip_cfg.transformer_width}")
-    rng = np.random.default_rng(0)
-    toks = synthetic_captions(BANK_ROWS, rng)
-
-    # six members over the 80 COCO classes, grouped as the launcher groups them
     specs = {}
     seed = 1
     for names, evd, use_freq, n_ctx in DEFAULT_MODEL_GROUPS:
         for name in names:
             trainable, constants = build_prompt_learner(
-                torch.Generator(device=dev).manual_seed(seed), params, COCO_OBJECT_CATEGORIES,
-                n_ctx=n_ctx or 16, dtype=torch.bfloat16)
+                torch.Generator(device=DEVICE).manual_seed(seed), params,
+                COCO_OBJECT_CATEGORIES, n_ctx=n_ctx or 16, dtype=dtype)
             seed += 1
-            specs[name] = build_model_spec(params, clip_cfg, trainable, constants,
-                                           DenseFlags(use_evidence=evd), use_freq=use_freq)
-    log(f"[main] members: {[(n, int(s.trainable['ctx'].shape[0])) for n, s in specs.items()]}")
+            flags = DenseFlags(use_evidence=evd, attention_impl=attention_impl)
+            specs[name] = build_model_spec(params, clip_cfg, trainable, constants, flags,
+                                           use_freq=use_freq)
+    return specs
+
+
+def with_impl(specs, impl):
+    """The same members (same prompt features) under another attention_impl."""
+    return {n: s._replace(flags=s.flags._replace(attention_impl=impl)) for n, s in specs.items()}
+
+
+def main_inputs():
+    """Seeded ViT-B/16 bf16 weights, caption tokens, co-occurrence statistics
+    and two 480x640 images, shared by every main path."""
+    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
+
+    clip_cfg = PRESETS["ViT-B/16"]
+    params = init_clip_params(torch.Generator(device=DEVICE).manual_seed(0), clip_cfg,
+                              dtype=torch.bfloat16, device=DEVICE)
+    log(f"[main] ViT-B/16 bf16 params: vision {clip_cfg.vision_layers}x{clip_cfg.vision_width}, "
+        f"text {clip_cfg.transformer_layers}x{clip_cfg.transformer_width}")
+    rng = np.random.default_rng(0)
+    toks = synthetic_captions(BANK_ROWS, rng)
     freq = {"adj": rng.random((80, 80)) * 50, "nums": rng.random(80) * 50 + 1}
     images = [rng.integers(0, 255, (480, 640, 3)).astype(np.uint8) for _ in range(N_IMAGES)]
+    return clip_cfg, params, toks, freq, images
+
+
+def phase_main_paths(card, inputs):
+    from leclip_tpu_torch.inference.tta import TTAEngine
+    from leclip_tpu_torch.models.dense_clip import DenseFlags, encode_image_features
+
+    dev = DEVICE
+    clip_cfg, params, toks, freq, images = inputs
+    specs = build_members(params, clip_cfg, torch.bfloat16)
+    log(f"[main] members: {[(n, int(s.trainable['ctx'].shape[0])) for n, s in specs.items()]}")
 
     # ---- the bf16 path, then the default path: TEST.PREC auto -> int8
     banks, engines, scores, bank_counts, score_counts = {}, {}, {}, {}, {}
@@ -535,11 +710,14 @@ def phase_main_paths(card):
                  compute_dtype=torch.bfloat16, device=dev, cooccurrence=engine.cooccurrence.cpu())
     one = [images[0]]
     k_eng = TTAEngine(params, clip_cfg, specs, bf16_fused=True, **small)
-    p_eng = TTAEngine(params, clip_cfg, specs, bf16_fused=False, **small)
+    # the plain reference stays plain: pinned to the xla route, or "auto"
+    # would run the resident-attention kernel in its unfused layers
+    p_eng = TTAEngine(params, clip_cfg, with_impl(specs, "xla"), bf16_fused=False, **small)
     with torch.inference_mode():
         crops_in = k_eng._crops(k_eng.stage_batch_fused(one)).flatten(0, 1)
         fk = encode_image_features(params, clip_cfg, crops_in, DenseFlags(), fused=True)
-        fp = encode_image_features(params, clip_cfg, crops_in, DenseFlags(), fused=False)
+        fp = encode_image_features(params, clip_cfg, crops_in, DenseFlags(attention_impl="xla"),
+                                   fused=False)
         cos_g = (fk.global_feat.float() * fp.global_feat.float()).sum(-1).min().item()
         cos_d = (fk.spatial_feats.float() * fp.spatial_feats.float()).sum(-1).min().item()
     f_k, f_p = k_eng.run_batch_fused(one), p_eng.run_batch_fused(one)
@@ -573,6 +751,113 @@ def phase_main_paths(card):
     return total, bank_counts, score_counts
 
 
+def phase_unfused_paths(card, inputs):
+    """(a) TEST.PREC fp32 — the reference-parity precision — on the same
+    weights widened to fp32: fp32 caption bank (the bank CLI's default) and
+    prompt features, make_engine, three batches; resident_attention must run
+    in every image-tower layer and no other kernel anywhere. (b) the same
+    engine with DenseFlags(attention_impl="pallas"): prompt features and one
+    batch, flash_attention in every layer of both towers. Both against an
+    attention_impl="xla" plain fp32 engine on a small input."""
+    from leclip_tpu_torch.device import cast_floating
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.inference.pipeline import DEFAULT_MODEL_GROUPS, make_engine
+    from leclip_tpu_torch.inference.tta import TTAEngine
+    from leclip_tpu_torch.models.dense_clip import DenseFlags, encode_image_features
+    from leclip_tpu_torch.ops import launches
+
+    clip_cfg, params16, toks, freq, images = inputs
+    params = cast_floating(params16, torch.float32)
+    specs = build_members(params, clip_cfg, torch.float32)
+    bank, bank_counts = build_bank("fp32", params, clip_cfg, toks, card)
+    engine, fused_a, counts_a = score_path("fp32", "fp32", params, clip_cfg, specs, bank, freq,
+                                           images, card)
+    # run_full_inference, the CLI's own loop, on the same images written as PNG (lossless)
+    from PIL import Image
+
+    from leclip_tpu_torch.inference.pipeline import run_full_inference
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"img{i}.png") for i in range(len(images))]
+        for p, im in zip(paths, images):
+            Image.fromarray(im).save(p)
+        out_json = os.path.join(tmp, "impreds.json")
+        full = run_full_inference(engine, paths, batch_size=N_IMAGES, out_json=out_json,
+                                  progress=False)
+        back = np.asarray(json.load(open(out_json)))
+    if not (np.allclose(full, fused_a, rtol=0, atol=1e-6) and np.allclose(back, full)):
+        raise AssertionError("run_full_inference disagrees with the staged batches")
+    log(f"[main:fp32] run_full_inference over {len(paths)} PNG files -> impreds.json "
+        f"{back.shape}, equal to the staged batches")
+
+    # ---- (b): flash attention in the prompt pass and the image tower
+    cfg = setup_config(opts=["TEST.PREC", "fp32", "TEST.multi_scale", "(2, 3, 4)",
+                             "TEST.use_freq", "True"])
+    launches.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    specs_b = build_members(params, clip_cfg, torch.float32, attention_impl="pallas")
+    engine_b = make_engine(cfg, params, clip_cfg, specs_b, caption_bank=bank, freq_stats=freq,
+                           device=DEVICE)
+    fused_b = list(engine_b.run_batches_fused_staged(iter([images])))[0]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts_b = launches.launch_counts()
+    text_passes = sum(len(names) * (3 if evd else 2) for names, evd, _, _ in DEFAULT_MODEL_GROUPS)
+    log(f"[main:pallas] prompt features of {len(specs_b)} members ({text_passes} text passes) + "
+        f"one batch of {N_IMAGES * (1 + engine_b.n_blocks)} crops in {run_s:.3f} s; launches "
+        f"{counts_b} (12 layers x ({text_passes} text passes + 1 image tower))")
+    expect_launches("pallas prompt features + scoring", counts_b, "pallas", 12 * (text_passes + 1))
+    if fused_b.shape != (N_IMAGES, 80) or not np.isfinite(fused_b).all():
+        raise AssertionError(f"pallas path: fused scores bad, shape {fused_b.shape}")
+    crops = N_IMAGES * (1 + engine_b.n_blocks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = list(engine_b.run_batches_fused_staged(iter([images] * 3), depth=2))
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    if any(not np.array_equal(o, fused_b) for o in again):
+        raise AssertionError("pallas path: repeated batches gave different scores")
+    log(f"[main:pallas] crop-forwards/s {3 * crops / score_s:.1f} (3 batches of {crops} crops in "
+        f"{score_s:.3f} s, host prep staged ahead) on {card}")
+
+    # ---- agreement on a small input against the plain fp32 engine (same
+    # members, attention_impl="xla"): image features, then fused scores
+    small = dict(scales=(2,), caption_bank=torch.as_tensor(bank),
+                 crop_size=clip_cfg.image_resolution, compute_dtype=torch.float32, device=DEVICE,
+                 cooccurrence=engine.cooccurrence.cpu())
+    one = [images[0]]
+    e_x = TTAEngine(params, clip_cfg, with_impl(specs, "xla"), **small)
+    e_a = TTAEngine(params, clip_cfg, specs, **small)
+    e_b = TTAEngine(params, clip_cfg, specs_b, **small)
+    feats, f_counts = {}, {}
+    with torch.inference_mode():
+        crops_in = e_x._crops(e_x.stage_batch_fused(one)).flatten(0, 1)
+        for impl in ("xla", "auto", "pallas"):
+            launches.reset_launch_counts()
+            feats[impl] = encode_image_features(params, clip_cfg, crops_in,
+                                                DenseFlags(attention_impl=impl))
+            f_counts[impl] = {k: n for k, n in launches.launch_counts().items() if n}
+    if f_counts != {"xla": {}, "auto": {"resident_attention": 12},
+                    "pallas": {"flash_attention": 12}}:
+        raise AssertionError(f"small-input towers took the wrong routes: {f_counts}")
+    f_err = {impl: max((getattr(feats[impl], a) - getattr(feats["xla"], a)).abs().max().item()
+                       for a in ("global_feat", "spatial_feats")) for impl in ("auto", "pallas")}
+    s_x, s_a, s_b = (e.run_batch_fused(one) for e in (e_x, e_a, e_b))
+    d_a = float(np.abs(s_a - s_x).max())
+    d_b = float(np.abs(s_b - s_x).max())
+    corr_b = float(np.corrcoef(s_b.ravel(), s_a.ravel())[0, 1])
+    log(f"[main:fp32] small input (1 image, {crops_in.shape[0]} crops) against the xla plain "
+        f"fp32 engine (tower launches {f_counts}): image features max|d| resident "
+        f"{f_err['auto']:.3g}, flash "
+        f"{f_err['pallas']:.3g}; fused scores max|d| (a) resident {d_a:.3g} (<= 1e-4), (b) "
+        f"flash with flash prompt features {d_b:.3g} (<= 1e-4); corr (b) vs (a) {corr_b:.7f} (>= 0.9999)")
+    if not (d_a <= 1e-4 and d_b <= 1e-4 and corr_b >= 0.9999 and np.isfinite(s_b).all()):
+        raise AssertionError("the unfused kernels' engines disagree with the plain fp32 engine")
+    return {"resident_attention": counts_a["resident_attention"],
+            "flash_attention": counts_b["flash_attention"]}, bank_counts, counts_a, counts_b
+
+
 KERNEL_SOURCES = {  # name: (source, file:line of the TPU kernel, its precision path)
     "attn_block_bf16": ("leclip_tpu_torch/csrc/attn_block_bf16.cu",
                         "leclip_tpu/ops/block_kernels.py:122", "bf16"),
@@ -585,6 +870,16 @@ KERNEL_SOURCES = {  # name: (source, file:line of the TPU kernel, its precision 
     "mlp_int8": ("leclip_tpu_torch/csrc/mlp_int8.cu",
                  "leclip_tpu/ops/quant_kernels.py:238", "int8"),
 }
+# the unfused attention kernels: (source, TPU kernel, the path that launches them)
+ATTN_SOURCES = {
+    "resident_attention": ("leclip_tpu_torch/csrc/resident_attention.cu",
+                           "leclip_tpu/ops/flash_attention.py:210",
+                           "TEST.PREC fp32: image tower, every layer"),
+    "flash_attention": ("leclip_tpu_torch/csrc/flash_attention.cu",
+                        "leclip_tpu/ops/flash_attention.py:257",
+                        'TEST.PREC fp32 + DenseFlags(attention_impl="pallas"): prompt-feature '
+                        "text pass and image tower, every layer"),
+}
 
 
 def main() -> int:
@@ -594,6 +889,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from leclip_tpu_torch.ops import _build
     from leclip_tpu_torch.ops import block_kernels as bk
+    from leclip_tpu_torch.ops import flash_attention as fa
     from leclip_tpu_torch.ops import quant_kernels as qk
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions are fp32 products
@@ -618,7 +914,10 @@ def main() -> int:
     kern8 = phase_kernels_int8(qk, gen)
     for tag in kern:
         kern[tag].update(kern8[tag])
-    total, bank_counts, score_counts = phase_main_paths(card)
+    kern_attn = phase_kernels_attention(fa, gen)
+    inputs = main_inputs()
+    total, bank_counts, score_counts = phase_main_paths(card, inputs)
+    total_attn, fp32_bank_counts, counts_a, counts_b = phase_unfused_paths(card, inputs)
 
     line = {"kernels": []}
     for k, (src, replaces, prec) in KERNEL_SOURCES.items():
@@ -635,6 +934,21 @@ def main() -> int:
                                                 "bound_by")},
             "path": f"TEST.PREC {prec}",
             "launches_bank": bank_counts[prec][k], "launches_scoring": score_counts[prec][k],
+        })
+    for k, (src, replaces, path) in ATTN_SOURCES.items():
+        variants = kern_attn[k]
+        main_v = variants["vit fp32"]  # the shape and dtype the main path gives it
+        line["kernels"].append({
+            "name": k, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": total_attn[k],
+            "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
+            **{key: main_v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")},
+            "shape": f"ViT-B/16 image tower [{N_IMAGES * 305}, 200, 768], 12 heads, kv_len 197, "
+                     "fp32",
+            "variants": variants, "path": path,
+            "launches_fp32_bank": fp32_bank_counts[k], "launches_path_a": counts_a[k],
+            "launches_path_b": counts_b[k],
         })
     print(card, flush=True)
     print(json.dumps(line), flush=True)

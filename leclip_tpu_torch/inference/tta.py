@@ -11,7 +11,12 @@ With a bf16 ViT on CUDA the image tower runs the hand-written bf16 block
 kernels (``_fused``, the counterpart of the JAX engine's TPU switch). With
 ``precision="int8"`` the tower's blocks are quantized once at construction
 (ops/quant.py) and every block runs the W8A8 kernels (ops/quant_kernels.py)
-instead; the bf16 block kernels are then off for that engine.
+instead; the bf16 block kernels are then off for that engine. Unfused
+towers (fp32 compute, ``bf16_fused=False``) route their attention by the
+first member's ``DenseFlags.attention_impl``, as the JAX engine does: under
+"auto" on CUDA the ViT's layers run the resident-attention kernel, and
+"pallas" runs the flash-attention kernel in the image tower and (through
+``build_model_spec``) in the prompt-feature text pass.
 
 Not ported yet (ROADMAP.md): the device mesh and ``shard_bank``, the
 per-member dump path (``run_batch`` / ``dispatch_batch_dump``) and the gather
@@ -255,8 +260,11 @@ class TTAEngine:
         with torch.inference_mode():
             crops = self._crops(staged)
             flat = crops.reshape((-1,) + crops.shape[2:])
-            feats = encode_image_features(self.clip_params, self.clip_cfg, flat,
-                                          groups[0][1], q8=self._q8, fused=self._fused)
+            # the image tower runs once for every member, under the first
+            # member's flags (its attention_impl), as the JAX engine does
+            flags = next(iter(self.models.values())).flags
+            feats = encode_image_features(self.clip_params, self.clip_cfg, flat, flags,
+                                          q8=self._q8, fused=self._fused)
             if self.caption_bank is not None:
                 aug, scores = retrieval_augment(feats.global_feat, self.caption_bank, self.topk)
             else:

@@ -116,14 +116,16 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig,
 
 
 def clip_encode_image(params: dict, cfg: CLIPConfig, images: torch.Tensor,
-                      dense: bool = False, q8: dict = None, fused: bool = False):
+                      dense: bool = False, impl: str = "auto", q8: dict = None,
+                      fused: bool = False):
     """Images [B, H, W, 3] (normalised) → global [B, E]; with ``dense`` also
-    the per-position embeddings. ``q8``: stacked int8 block weights of the
-    image tower (ops/quant.py), the W8A8 path; ``fused``: bf16 block kernels."""
+    the per-position embeddings. ``impl`` routes the unfused attention
+    (ops/attention.py); ``q8``: stacked int8 block weights of the image
+    tower (ops/quant.py), the W8A8 path; ``fused``: bf16 block kernels."""
     if not cfg.is_vit:
         raise NotImplementedError(RN_SLICE)
     return encode_image_vit(images, params["visual"], cfg.vision_heads,
-                            cfg.vision_patch_size, dense=dense, q8=q8, fused=fused)
+                            cfg.vision_patch_size, dense=dense, impl=impl, q8=q8, fused=fused)
 
 
 def config_from_state_dict(sd: dict) -> CLIPConfig:

@@ -32,6 +32,7 @@ class DenseFlags(NamedTuple):
     spatial_scale_text: float = 50.0
     spatial_scale_image: float = 50.0
     neg_prompt_wcls: bool = True
+    attention_impl: str = "auto"  # ops/attention.py: "auto" | "xla" | "resident" | "pallas"
 
 
 def _normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -49,7 +50,8 @@ def prompt_text_features(clip_params: dict, clip_cfg: CLIPConfig, trainable: dic
     text = clip_params["text"]
 
     def enc(embeds):
-        return _normalize(encode_text_embeds(text, embeds, eot, heads))
+        return _normalize(encode_text_embeds(text, embeds, eot, heads,
+                                             impl=flags.attention_impl))
 
     out = {"pos": enc(prompts), "neg": enc(prompts_neg)}
     if include_evidence if include_evidence is not None else flags.use_evidence:
@@ -138,9 +140,10 @@ def encode_image_features(clip_params: dict, clip_cfg: CLIPConfig, images: torch
                           flags: DenseFlags, q8: dict = None,
                           fused: bool = False) -> ImageFeatures:
     """Frozen image tower → normalised global + dense features (ViT).
-    ``q8``: int8 image-tower weights (ops/quant.py)."""
+    ``q8``: int8 image-tower weights (ops/quant.py); ``flags.attention_impl``
+    routes the unfused attention."""
     global_raw, tokens = clip_encode_image(clip_params, clip_cfg, images, dense=True,
-                                           q8=q8, fused=fused)
+                                           impl=flags.attention_impl, q8=q8, fused=fused)
     dense = tokens.reshape(tokens.shape[0], -1, tokens.shape[-1])
     return ImageFeatures(_normalize(global_raw), _normalize(dense))
 

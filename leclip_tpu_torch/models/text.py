@@ -35,38 +35,43 @@ def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["token_embedding"][tokens.long()]
 
 
-def _backbone(params: dict, x: torch.Tensor, n_heads: int, q8: dict = None,
-              fused: bool = False) -> torch.Tensor:
+def _backbone(params: dict, x: torch.Tensor, n_heads: int, impl: str = "auto",
+              q8: dict = None, fused: bool = False) -> torch.Tensor:
     """Embeddings [N, L, W] → post-ln_final features [N, L, W]. ``q8``:
     stacked int8 block weights (ops/quant.py), the W8A8 path with the causal
-    mask applied inside the kernels."""
+    mask applied inside the kernels. ``impl`` routes the unfused attention
+    (ops/attention.py; "pallas" runs the flash kernel under the causal
+    mask)."""
     ctx_len = x.shape[1]
     x = x + params["positional_embedding"][:ctx_len].to(x.dtype)
     x = run_transformer(x, params["blocks"], n_heads, mask=causal_mask(ctx_len, x.device),
-                        q8=q8, causal=True, fused=fused)
+                        impl=impl, q8=q8, causal=True, fused=fused)
     return layer_norm(x, params["ln_final"]["scale"], params["ln_final"]["bias"])
 
 
 def encode_text_sequence(params: dict, embeds: torch.Tensor, n_heads: int,
-                         q8: dict = None, fused: bool = False) -> torch.Tensor:
+                         impl: str = "auto", q8: dict = None,
+                         fused: bool = False) -> torch.Tensor:
     """All projected token features [N, L, E] (texts-as-images)."""
-    x = _backbone(params, embeds, n_heads, q8=q8, fused=fused)
+    x = _backbone(params, embeds, n_heads, impl=impl, q8=q8, fused=fused)
     return x @ params["text_projection"].to(x.dtype)
 
 
 def encode_text_embeds(params: dict, embeds: torch.Tensor, eot_idx: torch.Tensor,
-                       n_heads: int, q8: dict = None, fused: bool = False) -> torch.Tensor:
+                       n_heads: int, impl: str = "auto", q8: dict = None,
+                       fused: bool = False) -> torch.Tensor:
     """EOT-position features [N, E]; ``eot_idx`` is tokens.argmax(-1)."""
-    x = _backbone(params, embeds, n_heads, q8=q8, fused=fused)
+    x = _backbone(params, embeds, n_heads, impl=impl, q8=q8, fused=fused)
     eot = x[torch.arange(x.shape[0], device=x.device), eot_idx.long().to(x.device)]
     return eot @ params["text_projection"].to(x.dtype)
 
 
-def encode_text(params: dict, tokens: torch.Tensor, n_heads: int,
+def encode_text(params: dict, tokens: torch.Tensor, n_heads: int, impl: str = "auto",
                 sequence: bool = False, q8: dict = None, fused: bool = False) -> torch.Tensor:
     """Token ids [N, L] → EOT feature [N, E] (or all positions if sequence)."""
     embeds = embed_tokens(params, tokens)
     if sequence:
-        return encode_text_sequence(params, embeds, n_heads, q8=q8, fused=fused)
-    return encode_text_embeds(params, embeds, tokens.argmax(-1), n_heads, q8=q8, fused=fused)
+        return encode_text_sequence(params, embeds, n_heads, impl=impl, q8=q8, fused=fused)
+    return encode_text_embeds(params, embeds, tokens.argmax(-1), n_heads, impl=impl, q8=q8,
+                              fused=fused)
 

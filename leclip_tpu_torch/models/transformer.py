@@ -33,7 +33,7 @@ def _mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def residual_block(x: torch.Tensor, p: dict, n_heads: int,
-                   mask: Optional[torch.Tensor] = None, kv_len=None,
+                   mask: Optional[torch.Tensor] = None, impl: str = "auto", kv_len=None,
                    q8: Optional[dict] = None, causal: bool = False,
                    fused: bool = False) -> torch.Tensor:
     """One pre-LN residual attention block over [B, T, D].
@@ -44,7 +44,9 @@ def residual_block(x: torch.Tensor, p: dict, n_heads: int,
     int8. ``fused`` (inference only) runs the two bf16 block kernels
     (ops/block_kernels.py); ``causal`` marks ``mask`` as the standard
     lower-triangular mask so the kernels apply it natively. Without either
-    the block is the unfused math."""
+    the block is the unfused math, its attention routed by ``impl``
+    (ops/attention.py: "auto", "xla", "resident" or "pallas"), which the
+    fused and q8 branches ignore."""
     if q8 is not None:
         if mask is not None and not causal:
             raise ValueError(
@@ -81,7 +83,7 @@ def residual_block(x: torch.Tensor, p: dict, n_heads: int,
             p["mlp"]["proj_kernel"], p["mlp"]["proj_bias"],
         )
     y = layer_norm(x, p["ln_1"]["scale"], p["ln_1"]["bias"])
-    x = x + multi_head_attention(y, p["attn"], n_heads, mask=mask, kv_len=kv_len)
+    x = x + multi_head_attention(y, p["attn"], n_heads, mask=mask, impl=impl, kv_len=kv_len)
     return _mlp(x, p)
 
 
@@ -95,7 +97,8 @@ def layer_params(stacked, i: int):
 
 
 def run_transformer(x: torch.Tensor, stacked: dict, n_heads: int,
-                    mask: Optional[torch.Tensor] = None, kv_len: Optional[int] = None,
+                    mask: Optional[torch.Tensor] = None, impl: str = "auto",
+                    kv_len: Optional[int] = None,
                     q8: Optional[dict] = None, causal: bool = False,
                     fused: bool = False) -> torch.Tensor:
     """Apply the L stacked residual blocks in order. ``q8`` is the stacked
@@ -103,7 +106,8 @@ def run_transformer(x: torch.Tensor, stacked: dict, n_heads: int,
     of it goes with layer ``i`` of ``stacked``."""
     n_layers = stacked["ln_1"]["scale"].shape[0]
     for i in range(n_layers):
-        x = residual_block(x, layer_params(stacked, i), n_heads, mask=mask, kv_len=kv_len,
+        x = residual_block(x, layer_params(stacked, i), n_heads, mask=mask, impl=impl,
+                           kv_len=kv_len,
                            q8=None if q8 is None else layer_params(q8, i),
                            causal=causal, fused=fused)
     return x

@@ -21,12 +21,14 @@ def patchify(x: torch.Tensor, kernel: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 def encode_image_vit(x: torch.Tensor, params: dict, n_heads: int, patch: int,
-                     dense: bool = False, q8: dict = None, fused: bool = False):
+                     dense: bool = False, impl: str = "auto", q8: dict = None,
+                     fused: bool = False):
     """Images [B, H, W, 3] → global [B, E] (and dense [B, P, E]). The token
     axis is padded once to a multiple of 8 (197 → 200 at 224²); pad keys are
     masked through ``kv_len`` and pad query rows sliced off. ``q8``: stacked
     int8 block weights (ops/quant.py), the W8A8 path; ``fused`` runs the bf16
-    block kernels (ops/block_kernels.py)."""
+    block kernels (ops/block_kernels.py); ``impl`` routes the unfused
+    attention (ops/attention.py)."""
     tokens = patchify(x, params["patch_kernel"], patch)
     b, n, width = tokens.shape
     cls = params["class_embedding"].to(x.dtype).expand(b, 1, width)
@@ -37,7 +39,7 @@ def encode_image_vit(x: torch.Tensor, params: dict, n_heads: int, patch: int,
     t_pad = (-n_real) % 8
     if t_pad:
         tokens = F.pad(tokens, (0, 0, 0, t_pad))
-    tokens = run_transformer(tokens, params["blocks"], n_heads,
+    tokens = run_transformer(tokens, params["blocks"], n_heads, impl=impl,
                              kv_len=n_real if t_pad else None, q8=q8, fused=fused)
     if t_pad:
         tokens = tokens[:, :n_real]

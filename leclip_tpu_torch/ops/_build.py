@@ -30,7 +30,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 # kernel library → (source, {C function: argtypes}); every function returns
 # a cudaError_t as int, except the size query
@@ -51,6 +51,13 @@ KERNELS: Dict[str, tuple] = {
     }),
     "mlp_int8": ("mlp_int8.cu", {
         "leclip_mlp_int8": [_P] * 12 + [_I] * 3 + [_P],
+    }),
+    "resident_attention": ("resident_attention.cu", {
+        "leclip_resident_attention": [_P] * 2 + [_I] * 6 + [_P],
+        "leclip_resident_smem": [_I] * 3,
+    }),
+    "flash_attention": ("flash_attention.cu", {
+        "leclip_flash_attention": [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I, _P],
     }),
 }
 

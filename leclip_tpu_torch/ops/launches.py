@@ -6,6 +6,7 @@ and reads them after."""
 from __future__ import annotations
 
 from .block_kernels import attn_block_bf16, mlp_bf16
+from .flash_attention import flash_attention, resident_attention
 from .quant_kernels import attn_block_int8, ln_quant, mlp_int8
 
 WRAPPERS = {
@@ -14,6 +15,8 @@ WRAPPERS = {
     "ln_quant": ln_quant,
     "attn_block_int8": attn_block_int8,
     "mlp_int8": mlp_int8,
+    "resident_attention": resident_attention,
+    "flash_attention": flash_attention,
 }
 
 

@@ -4,8 +4,16 @@ JAX pytrees to the port and build OpenAI-layout state dicts from them."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
+from leclip_tpu.inference import tta as jtta
+from leclip_tpu.models import clip as jclip
+from leclip_tpu.models import dense_clip as jdc
+from leclip_tpu.models import prompt as jprompt
 from leclip_tpu.models.transformer import init_block_stack
+from leclip_tpu_torch.inference import tta as ttta
+from leclip_tpu_torch.models import dense_clip as tdc
+from leclip_tpu_torch.models import prompt as tprompt
 from leclip_tpu_torch.models.convert import from_jax_params
 
 
@@ -81,3 +89,40 @@ def block_stack(width, layers, seed, dtype="fp32", outlier=None):
     if dtype == "bf16":
         blocks = jax.device_get(jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), blocks))
     return blocks
+
+
+def tta_ensemble(dtype, cfg, classes, groups, attention_impl="auto"):
+    """Both sides' six-member ensembles (``groups``: (members, use_evidence,
+    use_freq, n_ctx)) from one JAX pytree of preset ``cfg`` and numpy prompts,
+    every member's flags carrying ``attention_impl``; plus a caption bank and
+    a co-occurrence matrix. Returns (jax params, port params, jax specs, port
+    specs, bank, cooc)."""
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    jp = jax.device_get(jclip.init_clip_params(jax.random.PRNGKey(0), cfg, dtype=jdt))
+    tp = to_port(jp)
+    rng = np.random.default_rng(7)
+    jspecs, tspecs, jconst, tconst = {}, {}, {}, {}
+    for names, evd, use_freq, n_ctx in groups:
+        if n_ctx not in jconst:
+            _, jconst[n_ctx] = jprompt.build_prompt_learner(
+                jax.random.PRNGKey(0), jp, classes, n_ctx=n_ctx, dtype=jdt)
+            _, tconst[n_ctx] = tprompt.build_prompt_learner(
+                torch.Generator().manual_seed(0), tp, classes, n_ctx=n_ctx,
+                dtype=torch.bfloat16 if dtype == "bf16" else torch.float32)
+        for name in names:
+            tr = {k: (0.02 * rng.standard_normal((n_ctx, cfg.transformer_width))).astype(np.float32)
+                  for k in ("ctx", "ctx_double", "ctx_evidence")}
+            tr.update(temperature=np.float32(3), spatial_T=np.float32(3),
+                      ranking_scale=np.float32(4))
+            jtr = {k: jnp.asarray(v, jdt) for k, v in tr.items()}
+            jflags = jdc.DenseFlags(use_evidence=evd, attention_impl=attention_impl)
+            tflags = tdc.DenseFlags(use_evidence=evd, attention_impl=attention_impl)
+            jspecs[name] = jtta.build_model_spec(jp, cfg, jtr, jconst[n_ctx], jflags,
+                                                 use_freq=use_freq)
+            tspecs[name] = ttta.build_model_spec(tp, cfg, to_port(jtr), tconst[n_ctx], tflags,
+                                                 use_freq=use_freq)
+    bank = rng.standard_normal((40, cfg.embed_dim)).astype(np.float32)
+    bank /= np.linalg.norm(bank, axis=-1, keepdims=True)
+    cooc = rng.random((len(classes),) * 2).astype(np.float32)
+    cooc /= cooc.sum(-1, keepdims=True)
+    return jp, tp, jspecs, tspecs, bank, cooc

@@ -14,13 +14,21 @@ the LayerNorm statistics (another summation order) tipping a value across a
 by exactly 1, scales 1e-6 relative; block outputs within 4 bf16 ulps on all
 but at most 1e-3 of the rows (those a flipped code touches) and nowhere
 beyond 16 (measured at the ViT-B/16 shape on an NVIDIA H100 80GB HBM3 at
-700.00 W: 4e-7 of the codes, 2.5e-5 of the MLP's rows, 6.5 ulps)."""
+700.00 W: 4e-7 of the codes, 2.5e-5 of the MLP's rows, 6.5 ulps).
+Attention kernels (``resident_attention``, ``flash_attention``) on
+unit-scale inputs: fp32 within 2e-5 absolute (fp32 sums in another order,
+no TF32). bf16: their outputs sit mostly at |x| ~ 0.1–0.3, so within 4 bf16
+ulps of max(|ref|, 2⁻⁴) on all but 1e-5 of the outputs, and within 2 ulps of
+max(1, |ref|) everywhere: a p rounded across a bf16 boundary (its fp32 score
+summed in another order) moves o by 2⁻⁸·(p/l)·|v − o|, which scales with |v|
+and not |o| and is largest in rows with few keys (early causal rows)."""
 
 import pytest
 import torch
 
 from leclip_tpu_torch.models.transformer import init_block_stack, layer_params
 from leclip_tpu_torch.ops import block_kernels as bk
+from leclip_tpu_torch.ops import flash_attention as fa
 from leclip_tpu_torch.ops import quant_kernels as qk
 from leclip_tpu_torch.ops.quant import kernel_layout, quantize_block_stack
 
@@ -194,3 +202,108 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(card):
     fixed = kernel_layout(mlp[2].contiguous())
     torch.testing.assert_close(qk.mlp_int8(x, mlp[0], mlp[1], fixed, *mlp[3:]),
                                qk.mlp_int8(x, *mlp), rtol=0, atol=0)
+
+
+# ---------------------------- attention kernels -----------------------------
+
+
+def _close_attn(out, ref):
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and torch.isfinite(out).all()
+    diff = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        assert diff.max().item() <= 2e-5, diff.max().item()
+    else:
+        rel = diff / (2.0 ** -8 * ref.float().abs().clamp(min=2.0 ** -4))
+        assert (rel > 4).float().mean().item() <= 1e-5, rel.max().item()
+        assert (diff <= 2 * 2.0 ** -8 * ref.float().abs().clamp(min=1.0)).all(), diff.max().item()
+
+
+def _randn(card, shape, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=card).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,heads,kv_len", [
+    (3, 24, 2, 24),      # short, no pad keys
+    (5, 200, 12, 197),   # ViT-B/16 crops
+    (2, 264, 16, 257),   # ViT-L/14
+])
+@pytest.mark.parametrize("packed", [True, False])
+def test_resident_kernel_matches_plain(card, dtype, b, t, heads, kv_len, packed):
+    w = 64 * heads
+    if packed:  # the three thirds of one qkv buffer, as attention_from_qkv splits it
+        q, k, v = _randn(card, (b, t, 3 * w), dtype, 7).split(w, dim=-1)
+    else:
+        q, k, v = (_randn(card, (b, t, w), dtype, 7 + i) for i in range(3))
+    before = fa.resident_attention.launches
+    out = fa.resident_attention(q, k, v, heads, kv_len)
+    assert fa.resident_attention.launches == before + 1
+    _close_attn(out, fa.resident_attention_plain(q, k, v, heads, kv_len))
+
+
+def test_resident_gradient_on_card(card):
+    q, k, v = (_randn(card, (2, 40, 128), torch.float32, 11 + i).requires_grad_()
+               for i in range(3))
+    cot = _randn(card, (2, 40, 128), torch.float32, 14)
+    grads = torch.autograd.grad((fa.resident_attention(q, k, v, 2, 37) * cot).sum(), (q, k, v))
+    refs = torch.autograd.grad((fa.packed_attention_reference(q, k, v, 2, 37) * cot).sum(),
+                               (q, k, v))
+    for g, r in zip(grads, refs):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)  # the backward IS the reference's
+
+
+def _flash_mask(card, kind, t, seed):
+    if kind == "none":
+        return None
+    if kind == "pad":
+        return torch.where(torch.arange(t, device=card) < t - 3, 0.0, -1e30)
+    if kind == "causal":
+        return torch.full((t, t), float("-inf"), device=card).triu(1)
+    return _randn(card, (t, t), torch.float32, seed)  # any additive matrix
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,mask", [
+    (2, 3, 24, "pad"),
+    (4, 12, 200, "pad"),      # ViT-B/16 image tower, one key block
+    (3, 8, 77, "causal"),     # text tower, one key block
+    (2, 4, 264, "none"),      # ViT-L/14: two key blocks of 256
+    (2, 4, 264, "causal"),
+    (1, 2, 300, "matrix"),
+])
+def test_flash_kernel_matches_plain(card, dtype, b, h, t, mask):
+    q, k, v = (_randn(card, (b, h, t, 64), dtype, 20 + i) for i in range(3))
+    m = _flash_mask(card, mask, t, 23)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, mask=m)
+    assert fa.flash_attention.launches == before + 1
+    _close_attn(out, fa.flash_attention_plain(q, k, v, mask=m))
+
+
+def test_flash_kernel_takes_head_views(card):
+    """[B, H, T, D] views of a packed qkv buffer go in without a copy."""
+    qkv = _randn(card, (3, 200, 3 * 256), torch.float32, 30)
+    q, k, v = (y.reshape(3, 200, 4, 64).transpose(1, 2) for y in qkv.split(256, dim=-1))
+    m = _flash_mask(card, "pad", 200, 0)
+    _close_attn(fa.flash_attention(q, k, v, mask=m), fa.flash_attention_plain(q, k, v, mask=m))
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(card):
+    q, k, v = (_randn(card, (2, 24, 128), torch.float32, 40 + i) for i in range(3))
+    with pytest.raises(ValueError, match="head width 64"):   # dh 32
+        fa.resident_attention(q, k, v, 4)
+    q2, k2, v2 = (y[:, :20] for y in (q, k, v))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.resident_attention(q2, k2, v2, 2)
+    with pytest.raises(ValueError, match="kv_len"):
+        fa.resident_attention(q, k, v, 2, 25)
+    big = _randn(card, (1, 1024, 3 * 64), torch.float32, 43).split(64, dim=-1)
+    with pytest.raises(ValueError, match="shared memory"):   # fp32 scores of 1024 keys
+        fa.resident_attention(*big, 1)
+    with pytest.raises(TypeError):
+        fa.resident_attention(q.half(), k.half(), v.half(), 2)
+    x = _randn(card, (1, 2, 24, 32), torch.float32, 44)
+    with pytest.raises(ValueError, match="head width 64"):
+        fa.flash_attention(x, x, x)

@@ -152,7 +152,8 @@ def test_int8_cpu_tensors_take_the_plain_path_and_count_no_launch():
     tqk.attn_block_int8(tx, *_attn_args(tl, tb), 2)
     tqk.mlp_int8(tx, *_mlp_args(tl, tb))
     assert launches.launch_counts() == {"attn_block_bf16": 0, "mlp_bf16": 0, "ln_quant": 0,
-                                        "attn_block_int8": 0, "mlp_int8": 0}
+                                        "attn_block_int8": 0, "mlp_int8": 0,
+                                        "resident_attention": 0, "flash_attention": 0}
     tqk.mlp_int8.launches = 3
     launches.reset_launch_counts()
     assert tqk.mlp_int8.launches == 0
@@ -220,4 +221,9 @@ def test_build_hash_covers_every_included_header(tmp_path, monkeypatch):
     with open(csrc / "attn_core.cuh", "a") as f:
         f.write("// edited\n")
     again = names()
-    assert {k for k in after if after[k] != again[k]} == {"attn_block_bf16", "attn_block_int8"}
+    assert {k for k in after if after[k] != again[k]} == {"attn_block_bf16", "attn_block_int8",
+                                                          "resident_attention"}
+    with open(csrc / "attn_simt.cuh", "a") as f:
+        f.write("// edited\n")
+    last = names()
+    assert {k for k in again if again[k] != last[k]} == {"resident_attention", "flash_attention"}

@@ -8,24 +8,19 @@ compute (JAX ``bf16_fused=True``, Pallas in interpret mode) 5e-2 with
 correlation > 0.999, as tests/test_block_kernels.py holds the JAX fused
 engine against its unfused one."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_port import to_port
+from _torch_port import to_port, tta_ensemble
 from leclip_tpu.data.vocab import COCO_OBJECT_CATEGORIES
 from leclip_tpu.inference import tta as jtta
 from leclip_tpu.models import clip as jclip
-from leclip_tpu.models import dense_clip as jdc
-from leclip_tpu.models import prompt as jprompt
 from leclip_tpu.ops import crops as jcrops
 from leclip_tpu.ops import ensemble as jens
 from leclip_tpu.ops import resize_matmul as jrm
 from leclip_tpu_torch.inference import tta as ttta
-from leclip_tpu_torch.models import dense_clip as tdc
-from leclip_tpu_torch.models import prompt as tprompt
 from leclip_tpu_torch.ops import crops as tcrops
 from leclip_tpu_torch.ops import ensemble as tens
 from leclip_tpu_torch.ops import resize_matmul as trm
@@ -115,35 +110,7 @@ def test_generate_final_answers_matches(tmp_path):
 
 def _ensemble(dtype):
     """Both sides' six-member ensembles from one JAX pytree and numpy prompts."""
-    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
-    jp = jax.device_get(jclip.init_clip_params(jax.random.PRNGKey(0), CFG, dtype=jdt))
-    tp = to_port(jp)
-    rng = np.random.default_rng(7)
-    jspecs, tspecs, jconst, tconst = {}, {}, {}, {}
-    for names, evd, use_freq, n_ctx in GROUPS:
-        if n_ctx not in jconst:
-            _, jconst[n_ctx] = jprompt.build_prompt_learner(
-                jax.random.PRNGKey(0), jp, CLASSES, n_ctx=n_ctx, dtype=jdt)
-            _, tconst[n_ctx] = tprompt.build_prompt_learner(
-                torch.Generator().manual_seed(0), tp, CLASSES, n_ctx=n_ctx,
-                dtype=torch.bfloat16 if dtype == "bf16" else torch.float32)
-        for name in names:
-            tr = {k: (0.02 * rng.standard_normal((n_ctx, 64))).astype(np.float32)
-                  for k in ("ctx", "ctx_double", "ctx_evidence")}
-            tr.update(temperature=np.float32(3), spatial_T=np.float32(3),
-                      ranking_scale=np.float32(4))
-            jtr = {k: jnp.asarray(v, jdt) for k, v in tr.items()}
-            jspecs[name] = jtta.build_model_spec(jp, CFG, jtr, jconst[n_ctx],
-                                                 jdc.DenseFlags(use_evidence=evd),
-                                                 use_freq=use_freq)
-            tspecs[name] = ttta.build_model_spec(tp, CFG, to_port(jtr), tconst[n_ctx],
-                                                 tdc.DenseFlags(use_evidence=evd),
-                                                 use_freq=use_freq)
-    bank = rng.standard_normal((40, CFG.embed_dim)).astype(np.float32)
-    bank /= np.linalg.norm(bank, axis=-1, keepdims=True)
-    cooc = rng.random((8, 8)).astype(np.float32)
-    cooc /= cooc.sum(-1, keepdims=True)
-    return jp, tp, jspecs, tspecs, bank, cooc
+    return tta_ensemble(dtype, CFG, CLASSES, GROUPS)
 
 
 @pytest.fixture(scope="module")
