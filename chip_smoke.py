@@ -3,7 +3,10 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. device: card name, power limit, and the nvcc build of every kernel;
+  1. device: card name, power limit, the nvcc build of every kernel, and in
+     the SASS of the three libraries whose products run on the Hopper GEMM
+     (attn_block_bf16, mlp_bf16, attn_block_int8) the HGMMA (wgmma) and
+     UTMALDG (TMA load) instructions that show it;
   2. kernels: each of the seven hand-written kernels (attn_block_bf16,
      mlp_bf16, ln_quant, attn_block_int8, mlp_int8, resident_attention,
      flash_attention) against its plain PyTorch version on the card at the
@@ -11,6 +14,8 @@ Phases (any failure exits non-zero and prints no result line):
      kernels also at ViT-L/14's 264 tokens, in fp32 and bf16), with
      CUDA-event timings, a PyTorch-ops yardstick and the roofline bound; and
      resident_attention's gradient against autograd through its reference;
+     and the device time and rate of every launch inside the four block
+     kernels at the ViT shape (scripts/probe_port_kernels.py, torch.profiler);
   3. the main paths at full ViT-B/16 width (12x768 vision, 12x512 text,
      seeded random bf16 weights), TEST.PREC bf16 and then TEST.PREC auto,
      which must resolve to int8 on the card: a caption bank of 8,192 rows
@@ -858,6 +863,43 @@ def phase_unfused_paths(card, inputs):
             "flash_attention": counts_b["flash_attention"]}, bank_counts, counts_a, counts_b
 
 
+SASS_KERNELS = ("attn_block_bf16", "mlp_bf16", "attn_block_int8")  # built on gemm_sm90.cuh
+
+
+def check_sass(build):
+    """The Hopper GEMM's products went through wgmma (HGMMA) fed by TMA
+    (UTMALDG): count both in each library's SASS (cuobjdump)."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    for k in SASS_KERNELS:
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(build._lib_path(k))],
+                              capture_output=True, text=True, timeout=120, check=True).stdout
+        n = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+        log(f"[device] SASS {k}: {n}")
+        if not (n["HGMMA"] and n["UTMALDG"]):
+            raise AssertionError(f"{k}: no HGMMA / UTMALDG in its SASS")
+
+
+def phase_launch_times(card):
+    """Device time and rate of every launch inside the four block kernels at
+    the ViT shape, by torch.profiler (scripts/probe_port_kernels.py).
+    Returns {block kernel: {launch: ms}}."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "probe_port_kernels.py")
+    spec = importlib.util.spec_from_file_location("probe_port_kernels", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    res = {}
+    log(f"[launches] per launch at the ViT shape {list(probe.SHAPES['vit'][:3])} on {card}:")
+    for name, rows in probe.launch_times("vit", 5).items():
+        log(f"  {name}: {sum(r[1] for r in rows):.4f} ms of device time per call")
+        for short, ms, rate, unit in rows:
+            log(f"    {ms:.4f} ms  {short}" + (f"  {rate:.1f} {unit}" if rate is not None else ""))
+        res[name] = {short: ms for short, ms, _, _ in rows}
+    return res
+
+
 KERNEL_SOURCES = {  # name: (source, file:line of the TPU kernel, its precision path)
     "attn_block_bf16": ("leclip_tpu_torch/csrc/attn_block_bf16.cu",
                         "leclip_tpu/ops/block_kernels.py:122", "bf16"),
@@ -909,12 +951,15 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         log(f"[device] ptxas {k}: {' | '.join(regs)}")
 
+    check_sass(_build)
+
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     kern = phase_kernels_bf16(bk, gen)
     kern8 = phase_kernels_int8(qk, gen)
     for tag in kern:
         kern[tag].update(kern8[tag])
     kern_attn = phase_kernels_attention(fa, gen)
+    launch_ms = phase_launch_times(card)
     inputs = main_inputs()
     total, bank_counts, score_counts = phase_main_paths(card, inputs)
     total_attn, fp32_bank_counts, counts_a, counts_b = phase_unfused_paths(card, inputs)
@@ -934,6 +979,7 @@ def main() -> int:
                                                 "bound_by")},
             "path": f"TEST.PREC {prec}",
             "launches_bank": bank_counts[prec][k], "launches_scoring": score_counts[prec][k],
+            **({"launch_ms": launch_ms[k]} if k in launch_ms else {}),
         })
     for k, (src, replaces, path) in ATTN_SOURCES.items():
         variants = kern_attn[k]

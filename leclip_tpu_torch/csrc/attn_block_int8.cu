@@ -7,7 +7,7 @@
 // wrapper just before). Three launches here:
 //   1. int8_gemm<IEPI_BIAS>:  bf16(acc * (xs * s_col) + b) -> bf16 qkv [R, 3D]
 //   2. attn_core (attn_core.cuh): per (sequence, head) softmax attention -> bf16 [R, D]
-//   3. tiled_gemm<-, RESID_PLUS_ACC> (gemm.cuh): bf16((x + att @ W_out) + b)
+//   3. hopper_gemm<RESID_PLUS_ACC> (gemm_sm90.cuh): bf16((x + att @ W_out) + b)
 // Launches 2 and 3 are the bf16 block's own: the TPU kernel keeps the
 // attention core and the out-projection in bf16 too, with the same rounding
 // points (bf16 qkv, bf16 unnormalised p, fp32 sum of p, bf16 head outputs).
@@ -18,10 +18,12 @@
 // flops over ~4*R*D + 5*D^2 bytes, far above the ridge, so tensor-core
 // operations bound it. The QKV product runs on the int8 tensor cores
 // (mma.sync m16n8k32, 128x128x128 tiles, cp.async three stages deep,
-// gemm_int8.cuh). wgmma/TMA and a single fused launch are later work.
+// gemm_int8.cuh); the bf16 out-projection runs on wgmma fed by TMA
+// (gemm_sm90.cuh). An int8 wgmma GEMM and a single fused launch are later
+// work.
 #include "attn_core.cuh"
-#include "gemm.cuh"
 #include "gemm_int8.cuh"
+#include "gemm_sm90.cuh"
 
 using leclip::bf16;
 
@@ -54,10 +56,9 @@ int leclip_attn_block_int8(const void* x, const void* xi, const void* xs, const 
   if (err != cudaSuccess) return (int)err;
   err = leclip::launch_attn_any(qkv_b16, att_b16, b, t, d, n_heads, kv_len, causal, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)leclip::launch_tiled_gemm<false, leclip::EPI_RESID_PLUS_ACC>(
-      att_b16, nullptr, nullptr, static_cast<const bf16*>(out_w),
-      static_cast<const bf16*>(out_b), static_cast<const bf16*>(x), static_cast<bf16*>(out),
-      rows, d, d, 0.f, s);
+  return (int)leclip::launch_hopper_gemm<leclip::EPI_RESID_PLUS_ACC>(
+      att_b16, static_cast<const bf16*>(out_w), static_cast<const bf16*>(out_b),
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), rows, d, d, s);
 }
 
 }  // extern "C"

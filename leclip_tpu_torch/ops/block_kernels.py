@@ -10,15 +10,17 @@ and their plain PyTorch versions.
 
 What bounds them on the H100, and what the design does about it, is in the
 note at the top of each source. In short: both are bound by tensor-core
-operations at the ViT-B/16 and caption-bank shapes. Every product runs on
-the tensor cores with fp32 accumulation: the projections through one tiled
-GEMM with the LayerNorm fused into its A-tile loads and the bias / GELU /
-residual into its epilogue (``csrc/gemm.cuh``), the attention core with its
-scores held in registers. The attention block is three launches (LN+QKV,
-per-head attention, out-proj+residual) and the MLP two (LN+fc+GELU,
-proj+residual); the bf16 qkv, per-head outputs and MLP hidden go through
-HBM, at exactly the points where the TPU kernels round them — later PRs
-fuse that traffic away.
+operations at the ViT-B/16 and caption-bank shapes. Each block first takes
+the LayerNorm once per row in its own launch (``csrc/layernorm.cuh``, the
+row statistics shared with ``ln_quant``), writing bf16(LN(x)), the TPU
+kernels' rounding point; every product then runs through one Hopper GEMM
+(``csrc/gemm_sm90.cuh``: wgmma fed by TMA, one persistent warp-specialised
+block per SM) with the bias / GELU / residual applied in its epilogue, and
+the attention core keeps its scores in registers (``csrc/attn_core.cuh``).
+The attention block is four launches (LN, QKV, per-head attention,
+out-proj+residual) and the MLP three (LN, fc+GELU, proj+residual); LN(x),
+the bf16 qkv, per-head outputs and MLP hidden go through HBM, at exactly the
+points where the TPU kernels round them — later PRs fuse that traffic away.
 
 Each wrapper takes the plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises; it never falls back. ``launches``
@@ -27,7 +29,8 @@ reads and resets the counts of every kernel).
 
 The TPU kernels' VMEM gates (``fits_vmem_*``) have no counterpart: the CUDA
 kernels take widths D % 128 == 0 up to 1024 (every CLIP tower: 512, 640,
-768, 1024), head width 32, 64 or 128, and any row count."""
+768, 1024), head width 32, 64 or 128, any row count, and tensors whose data
+start on a 16-byte boundary (TMA and 16-byte copies)."""
 
 from __future__ import annotations
 
@@ -118,6 +121,8 @@ def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.bfloat16) -> N
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must start on a 16-byte boundary")
 
 
 def _raise_on(rc: int, kernel: str) -> None:

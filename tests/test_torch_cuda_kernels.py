@@ -68,6 +68,9 @@ def _close(out, ref):
     (3, 17, 128, 4, 13, False),      # ragged rows, short sequence, head width 32
     (2, 264, 1024, 16, 257, False),  # ViT-L/14 width
     (3, 40, 256, 2, 40, True),       # head width 128, causal
+    (2, 50, 640, 10, 47, False),     # D = 640: N = 1920 and 640, no multiple of 256
+    (1, 13, 512, 8, 13, True),       # 13 rows, below one 128-row tile
+    (4, 32, 128, 2, 30, False),      # D = 128: K has fewer 64-deep steps than the GEMM's stages
 ])
 def test_attn_block_kernel_matches_plain(card, b, t, d, heads, kv_len, causal):
     rn, attn, _ = _weights(card, d, 4 * d, 0)
@@ -78,7 +81,13 @@ def test_attn_block_kernel_matches_plain(card, b, t, d, heads, kv_len, causal):
     _close(out, bk.attn_block_bf16_plain(x, *attn, heads, kv_len=kv_len, causal=causal))
 
 
-@pytest.mark.parametrize("rows,d", [(1000, 768), (77 * 9, 512), (13, 128), (300, 1024)])
+@pytest.mark.parametrize("rows,d", [
+    (1000, 768), (77 * 9, 512),
+    (13, 128),     # below one row tile; K = 128 for fc
+    (300, 1024),   # hidden 4096
+    (700, 640),    # N = 2560 and 640 (no multiple of 256)
+    (129, 1024),   # one row past a tile
+])
 def test_mlp_kernel_matches_plain(card, rows, d):
     rn, _, mlp = _weights(card, d, 4 * d, 1)
     x = rn(rows, d)
@@ -97,6 +106,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         bk.attn_block_bf16(x.transpose(0, 1), *attn, 2)
     with pytest.raises(ValueError):
         bk.attn_block_bf16(rn(2, 8, 96), *[a[..., :96] for a in attn], 2)
+    shifted = rn(2 * 8 * 128 + 1)[1:].view(2, 8, 128)  # contiguous, 2 bytes past 16-byte alignment
+    with pytest.raises(ValueError, match="16-byte"):
+        bk.mlp_bf16(shifted, *mlp)
 
 
 # ------------------------------ int8 kernels --------------------------------

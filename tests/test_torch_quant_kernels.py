@@ -206,8 +206,9 @@ def test_build_hash_covers_every_included_header(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert set(_build.source_files("mlp_int8.cu")) == {"mlp_int8.cu", "gemm_int8.cuh",
-                                                       "quant.cuh", "gemm.cuh"}
-    assert "attn_core.cuh" in _build.source_files("attn_block_bf16.cu")
+                                                       "quant.cuh", "layernorm.cuh", "gemm.cuh"}
+    assert {"attn_core.cuh", "gemm_sm90.cuh", "layernorm.cuh"} <= set(
+        _build.source_files("attn_block_bf16.cu"))
 
     def names():
         return {k: _build._lib_path(k).name for k in _build.KERNELS}
@@ -227,3 +228,13 @@ def test_build_hash_covers_every_included_header(tmp_path, monkeypatch):
         f.write("// edited\n")
     last = names()
     assert {k for k in again if again[k] != last[k]} == {"resident_attention", "flash_attention"}
+    # the LN row pass is shared by the bf16 and int8 blocks; the Hopper GEMM
+    # by the bf16 blocks and the int8 attention block's out-projection
+    for header, users in (("layernorm.cuh", {"attn_block_bf16", "mlp_bf16", "ln_quant",
+                                             "attn_block_int8", "mlp_int8"}),
+                          ("gemm_sm90.cuh", {"attn_block_bf16", "mlp_bf16", "attn_block_int8"})):
+        prev = names()
+        with open(csrc / header, "a") as f:
+            f.write("// edited\n")
+        now = names()
+        assert {k for k in prev if prev[k] != now[k]} == users, header
