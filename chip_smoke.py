@@ -6,14 +6,17 @@ Phases (any failure exits non-zero and prints no result line):
   1. device: card name, power limit, the nvcc build of every kernel, and in
      the SASS of the three libraries whose products run on the Hopper GEMM
      (attn_block_bf16, mlp_bf16, attn_block_int8) the HGMMA (wgmma) and
-     UTMALDG (TMA load) instructions that show it;
+     UTMALDG (TMA load) instructions that show it, and in flash_attention's
+     the HMMA (mma.sync) of its bf16 tensor-core path;
   2. kernels: each of the seven hand-written kernels (attn_block_bf16,
      mlp_bf16, ln_quant, attn_block_int8, mlp_int8, resident_attention,
      flash_attention) against its plain PyTorch version on the card at the
      main paths' shapes (ViT-B/16 crops, caption-bank text; the attention
      kernels also at ViT-L/14's 264 tokens, in fp32 and bf16), with
-     CUDA-event timings, a PyTorch-ops yardstick and the roofline bound; and
-     resident_attention's gradient against autograd through its reference;
+     CUDA-event timings, a PyTorch-ops yardstick and the roofline bound (the
+     attention kernels and their yardstick also by device time alone,
+     torch.profiler); and resident_attention's gradient against autograd
+     through its reference;
      and the device time and rate of every launch inside the four block
      kernels at the ViT shape (scripts/probe_port_kernels.py, torch.profiler);
   3. the main paths at full ViT-B/16 width (12x768 vision, 12x512 text,
@@ -83,6 +86,23 @@ def cuda_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """Device time per call of the CUDA kernels ``fn`` launches, by
+    torch.profiler, without the host's share (which ``cuda_ms`` counts where
+    the host is slower than the card: a small attention call's Python)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0)
+    return total / reps / 1e3
 
 
 def bf16_tol(ref: torch.Tensor) -> torch.Tensor:
@@ -477,6 +497,7 @@ def phase_kernels_attention(fa, gen):
             log(f"[kernels] attention {key}: q/k/v [{b}, {t}, {w}] ({heads} heads of 64), "
                 f"kv_len {kv_len}, causal {causal}")
             lib_ms = cuda_ms(lambda: lib_sdpa(qh, kh, vh, kv_len, causal), 10)
+            lib_dev = device_ms(lambda: lib_sdpa(qh, kh, vh, kv_len, causal))
             if not causal:
                 err = check_attn("resident_attention",
                                  fa.resident_attention(q, k, v, heads, kv_len),
@@ -487,7 +508,9 @@ def phase_kernels_attention(fa, gen):
                     ms=cuda_ms(lambda: fa.resident_attention(q, k, v, heads, kv_len), 10),
                     plain_ms=cuda_ms(lambda: fa.resident_attention_plain(q, k, v, heads, kv_len),
                                      3),
-                    library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1])
+                    library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                    device_ms=device_ms(lambda: fa.resident_attention(q, k, v, heads, kv_len)),
+                    library_device_ms=lib_dev)
             mask = (causal_mask(t, DEVICE) if causal else
                     torch.where(torch.arange(t, device=DEVICE) < kv_len, 0.0, -1e30))
             err = check_attn("flash_attention", fa.flash_attention(qh, kh, vh, mask=mask),
@@ -498,13 +521,16 @@ def phase_kernels_attention(fa, gen):
                 max_abs_err=err,
                 ms=cuda_ms(lambda: fa.flash_attention(qh, kh, vh, mask=mask), 10),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(qh, kh, vh, mask=mask), 3),
-                library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1])
+                library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                device_ms=device_ms(lambda: fa.flash_attention(qh, kh, vh, mask=mask)),
+                library_device_ms=lib_dev)
             for name, rows in res.items():
                 if key in rows:
                     r = rows[key]
                     log(f"  {name} [{key}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
                         f"ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                        f"({r['bound_by']})")
+                        f"({r['bound_by']}); device time alone: kernel {r['device_ms']:.4f} ms, "
+                        f"library {r['library_device_ms']:.4f} ms")
             del qkv, q, k, v, qh, kh, vh, mask
             torch.cuda.empty_cache()
 
@@ -863,20 +889,27 @@ def phase_unfused_paths(card, inputs):
             "flash_attention": counts_b["flash_attention"]}, bank_counts, counts_a, counts_b
 
 
-SASS_KERNELS = ("attn_block_bf16", "mlp_bf16", "attn_block_int8")  # built on gemm_sm90.cuh
+# library: the instructions its SASS must hold
+SASS_KERNELS = {
+    "attn_block_bf16": ("HGMMA", "UTMALDG"),  # built on gemm_sm90.cuh: wgmma fed by TMA
+    "mlp_bf16": ("HGMMA", "UTMALDG"),
+    "attn_block_int8": ("HGMMA", "UTMALDG"),
+    "flash_attention": ("HMMA",),             # bf16 flash on the tensor cores (mma.sync)
+}
 
 
 def check_sass(build):
-    """The Hopper GEMM's products went through wgmma (HGMMA) fed by TMA
-    (UTMALDG): count both in each library's SASS (cuobjdump)."""
+    """The products went through the tensor cores: wgmma (HGMMA) fed by TMA
+    (UTMALDG) in the Hopper GEMM's libraries, mma.sync (HMMA) in bf16
+    flash_attention; count each in the library's SASS (cuobjdump)."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    for k in SASS_KERNELS:
+    for k, need in SASS_KERNELS.items():
         sass = subprocess.run([cuobjdump, "--dump-sass", str(build._lib_path(k))],
                               capture_output=True, text=True, timeout=120, check=True).stdout
-        n = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+        n = {op: sass.count(op) for op in ("HGMMA", "HMMA", "UTMALDG", "UTMASTG")}
         log(f"[device] SASS {k}: {n}")
-        if not (n["HGMMA"] and n["UTMALDG"]):
-            raise AssertionError(f"{k}: no HGMMA / UTMALDG in its SASS")
+        if not all(n[op] for op in need):
+            raise AssertionError(f"{k}: no {' / '.join(need)} in its SASS")
 
 
 def phase_launch_times(card):
@@ -912,15 +945,20 @@ KERNEL_SOURCES = {  # name: (source, file:line of the TPU kernel, its precision 
     "mlp_int8": ("leclip_tpu_torch/csrc/mlp_int8.cu",
                  "leclip_tpu/ops/quant_kernels.py:238", "int8"),
 }
-# the unfused attention kernels: (source, TPU kernel, the path that launches them)
+# the unfused attention kernels: (source, TPU kernel, the path that launches
+# them, the headers that hold their cores)
 ATTN_SOURCES = {
     "resident_attention": ("leclip_tpu_torch/csrc/resident_attention.cu",
                            "leclip_tpu/ops/flash_attention.py:210",
-                           "TEST.PREC fp32: image tower, every layer"),
+                           "TEST.PREC fp32: image tower, every layer",
+                           ["leclip_tpu_torch/csrc/attn_simt.cuh (fp32)",
+                            "leclip_tpu_torch/csrc/attn_core.cuh (bf16)"]),
     "flash_attention": ("leclip_tpu_torch/csrc/flash_attention.cu",
                         "leclip_tpu/ops/flash_attention.py:257",
                         'TEST.PREC fp32 + DenseFlags(attention_impl="pallas"): prompt-feature '
-                        "text pass and image tower, every layer"),
+                        "text pass and image tower, every layer",
+                        ["leclip_tpu_torch/csrc/attn_simt.cuh (fp32)",
+                         "leclip_tpu_torch/csrc/flash_mma.cuh (bf16)"]),
 }
 
 
@@ -981,11 +1019,11 @@ def main() -> int:
             "launches_bank": bank_counts[prec][k], "launches_scoring": score_counts[prec][k],
             **({"launch_ms": launch_ms[k]} if k in launch_ms else {}),
         })
-    for k, (src, replaces, path) in ATTN_SOURCES.items():
+    for k, (src, replaces, path, headers) in ATTN_SOURCES.items():
         variants = kern_attn[k]
         main_v = variants["vit fp32"]  # the shape and dtype the main path gives it
         line["kernels"].append({
-            "name": k, "route": "cuda", "source": src, "replaces": replaces,
+            "name": k, "route": "cuda", "source": src, "headers": headers, "replaces": replaces,
             "launches": total_attn[k],
             "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
             **{key: main_v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",

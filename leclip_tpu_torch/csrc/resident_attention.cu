@@ -12,15 +12,17 @@
 //         (attn_core.cuh: mma.sync m16n8k16, scores in registers), which
 //         rounds at those points; no mask but the pad keys.
 //   fp32: the CUDA-core core of attn_simt.cuh (fp32 FMA; no tensor core, so
-//         no TF32 rounding of the reference-parity path), RESIDENT mode.
+//         no TF32 rounding of the reference-parity path), RESIDENT mode, the
+//         register-tiled loops it shares with fp32 flash_attention.
 // Head width 64 only. Keys past kv_len are never visited (their p is 0).
 //
 // Bound on the H100 at the ViT-B/16 shape [610, 200, 768], kv_len 197:
 // 4*B*H*T*kv_len*64 = 74 GFLOP over 4*B*T*W*s bytes (0.38 GB in fp32) — the
 // operations bound both types (fp32 on the CUDA cores at 67 TFLOP/s: 1.1 ms;
 // bf16 on the tensor cores: 0.075 ms against 0.11 ms of bytes, so bytes).
-// The fp32 design keeps a 64-query tile's scores in shared memory and
-// streams K and V in 64-key chunks; each thread holds a 4x4 register tile.
+// The fp32 design keeps a query tile's scores in shared memory and streams
+// K and V in double-buffered 64-key chunks; each thread holds an NI x 4
+// register tile fed by float4 reads of both operands (attn_simt.cuh).
 #include "attn_core.cuh"
 #include "attn_simt.cuh"
 
@@ -30,7 +32,7 @@ extern "C" {
 // type (1: bf16, 0: fp32); the wrapper refuses shapes above the card's 227 KB.
 size_t leclip_resident_smem(int t, int kv_len, int is_bf16) {
   if (is_bf16) return leclip::attn_smem((t + 31) / 32 * 32, 64);
-  return leclip::simt::smem_bytes(kv_len | 1);
+  return leclip::simt::smem_bytes(t, leclip::simt::score_lds(kv_len));
 }
 
 // qkv [b, t, 3w] contiguous (q, k, v its thirds), out [b, t, w]; w = 64 * n_heads;
@@ -48,7 +50,7 @@ int leclip_resident_attention(const void* qkv, void* out, int b, int t, int w, i
   p.q = base;
   p.k = base + w;
   p.v = base + 2 * w;
-  p.o = out;
+  p.o = static_cast<float*>(out);
   p.mask = nullptr;
   p.mask_rows = 0;
   p.n_heads = n_heads;
@@ -61,9 +63,9 @@ int leclip_resident_attention(const void* qkv, void* out, int b, int t, int w, i
   p.q_st = p.kv_st = 3 * w;
   p.o_sb = (long long)t * w;
   p.o_st = w;
-  p.lds = kv_len | 1;
+  p.lds = leclip::simt::score_lds(kv_len);
   p.scale = 0.125f;  // 64^-0.5
-  return (int)leclip::simt::launch_attn_simt<float, leclip::simt::RESIDENT>(p, b * n_heads, s);
+  return (int)leclip::simt::launch_attn_simt<leclip::simt::RESIDENT>(p, b * n_heads, s);
 }
 
 }  // extern "C"

@@ -36,14 +36,21 @@ DUMP_PENDING = ("the per-member dump path (save_dir: data.pkl / sim_matrix.pkl) 
                 "ported yet (ROADMAP.md queue 1); run with save_dir=None")
 
 
+def bank_fuses(device, batch_size: int) -> bool:
+    """Whether the bf16 caption bank runs the fused block kernels: on a CUDA
+    device, at a batch size the reference fuses (``batch_size % 8 == 0``)."""
+    return torch.device(device).type == "cuda" and batch_size % 8 == 0
+
+
 def build_caption_bank(clip_params: dict, clip_cfg: CLIPConfig, caption_tokens: np.ndarray,
                        batch_size: int = 256, dtype=np.float32, precision: str = "default",
                        device=None) -> np.ndarray:
     """Encode a caption corpus into the L2-normalised retrieval bank [N, E].
 
     ``precision='default'``: the text tower as given (fp32, plain math).
-    ``precision='bf16'``: the tower cast to bf16; on CUDA it runs the fused
-    bf16 block kernels (ops/block_kernels.py).
+    ``precision='bf16'``: the tower cast to bf16; on CUDA at ``batch_size``
+    % 8 == 0 it runs the fused bf16 block kernels (ops/block_kernels.py), as
+    the JAX reference fuses only there (:func:`bank_fuses`).
     ``precision='int8'``: the causal text tower through the W8A8 kernels
     (ops/quant_kernels.py), its blocks quantized once here; the bank feeds
     top-k retrieval, which is insensitive to the quantization noise. On CUDA
@@ -72,7 +79,7 @@ def build_caption_bank(clip_params: dict, clip_cfg: CLIPConfig, caption_tokens: 
         q8 = quantize_stack_on_device(text["blocks"])
     elif precision == "bf16":
         text = tree_map(to_bf16, text)
-        fused = device.type == "cuda"
+        fused = bank_fuses(device, batch_size)
     elif precision != "default":
         raise ValueError(f"unknown precision {precision!r}")
 

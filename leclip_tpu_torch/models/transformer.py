@@ -42,11 +42,15 @@ def residual_block(x: torch.Tensor, p: dict, n_heads: int,
     runs the W8A8 kernels (ops/quant_kernels.py): LN + int8 QKV + bf16
     attention and out-projection, then the whole MLP with both products in
     int8. ``fused`` (inference only) runs the two bf16 block kernels
-    (ops/block_kernels.py); ``causal`` marks ``mask`` as the standard
-    lower-triangular mask so the kernels apply it natively. Without either
-    the block is the unfused math, its attention routed by ``impl``
-    (ops/attention.py: "auto", "xla", "resident" or "pallas"), which the
-    fused and q8 branches ignore."""
+    (ops/block_kernels.py) where the JAX reference runs its own: the
+    attention kernel where ``fits_vmem_attn(D)`` holds, the MLP kernel where
+    ``fits_vmem_mlp(D, H)`` holds and B·T % 8 == 0; each sub-block that
+    fails its gate runs the unfused bf16 math instead (ViT-L/14's 1024-wide
+    MLP). ``causal`` marks ``mask`` as the standard lower-triangular mask so
+    the kernels apply it natively. Without either the block is the unfused
+    math, its attention routed by ``impl`` (ops/attention.py: "auto", "xla",
+    "resident" or "pallas"), which the q8 branch and the fused kernels
+    ignore."""
     if q8 is not None:
         if mask is not None and not causal:
             raise ValueError(
@@ -68,22 +72,29 @@ def residual_block(x: torch.Tensor, p: dict, n_heads: int,
             *q8["mlp"]["fc"], p["mlp"]["fc_bias"],
             *q8["mlp"]["proj"], p["mlp"]["proj_bias"],
         )
+    attn_kernel = mlp_kernel = False
     if fused and (mask is None or causal):
-        from ..ops.block_kernels import attn_block_bf16, mlp_bf16
+        from ..ops.block_kernels import attn_block_bf16, fits_vmem_attn, fits_vmem_mlp, mlp_bf16
 
+        d, hidden = x.shape[-1], p["mlp"]["fc_kernel"].shape[-1]
+        attn_kernel = fits_vmem_attn(d)
+        mlp_kernel = fits_vmem_mlp(d, hidden) and (x.shape[0] * x.shape[1]) % 8 == 0
+    if attn_kernel:
         x = attn_block_bf16(
             x, p["ln_1"]["scale"], p["ln_1"]["bias"],
             p["attn"]["qkv_kernel"], p["attn"]["qkv_bias"],
             p["attn"]["out_kernel"], p["attn"]["out_bias"],
             n_heads, kv_len=kv_len, causal=causal,
         )
+    else:
+        y = layer_norm(x, p["ln_1"]["scale"], p["ln_1"]["bias"])
+        x = x + multi_head_attention(y, p["attn"], n_heads, mask=mask, impl=impl, kv_len=kv_len)
+    if mlp_kernel:
         return mlp_bf16(
             x, p["ln_2"]["scale"], p["ln_2"]["bias"],
             p["mlp"]["fc_kernel"], p["mlp"]["fc_bias"],
             p["mlp"]["proj_kernel"], p["mlp"]["proj_bias"],
         )
-    y = layer_norm(x, p["ln_1"]["scale"], p["ln_1"]["bias"])
-    x = x + multi_head_attention(y, p["attn"], n_heads, mask=mask, impl=impl, kv_len=kv_len)
     return _mlp(x, p)
 
 

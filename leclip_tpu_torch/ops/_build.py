@@ -33,7 +33,7 @@ NVCC_FLAGS = [
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 # kernel library → (source, {C function: argtypes}); every function returns
-# a cudaError_t as int, except the size query
+# a cudaError_t as int, except the size queries (*_smem, *_bytes)
 KERNELS: Dict[str, tuple] = {
     "attn_block_bf16": ("attn_block_bf16.cu", {
         "leclip_attn_block_bf16": [_P] * 10 + [_I] * 6 + [_F, _P],
@@ -57,7 +57,8 @@ KERNELS: Dict[str, tuple] = {
         "leclip_resident_smem": [_I] * 3,
     }),
     "flash_attention": ("flash_attention.cu", {
-        "leclip_flash_attention": [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I, _P],
+        "leclip_flash_attention": [_P] * 6 + [_I] * 6 + [_L] * 9 + [_I, _P],
+        "leclip_flash_scratch_bytes": [_I, _I],
     }),
 }
 
@@ -152,6 +153,6 @@ def load(name: str) -> ctypes.CDLL:
             for fn, argtypes in KERNELS[name][1].items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
-                f.restype = ctypes.c_size_t if fn.endswith("_smem") else ctypes.c_int
+                f.restype = ctypes.c_size_t if fn.endswith(("_smem", "_bytes")) else ctypes.c_int
             _libs[name] = lib
     return _libs[name]

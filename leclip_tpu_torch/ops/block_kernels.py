@@ -27,16 +27,38 @@ tensor it launches the kernel or raises; it never falls back. ``launches``
 on each wrapper counts the calls that launched the kernel (ops/launches.py
 reads and resets the counts of every kernel).
 
-The TPU kernels' VMEM gates (``fits_vmem_*``) have no counterpart: the CUDA
-kernels take widths D % 128 == 0 up to 1024 (every CLIP tower: 512, 640,
-768, 1024), head width 32, 64 or 128, any row count, and tensors whose data
-start on a 16-byte boundary (TMA and 16-byte copies)."""
+The CUDA kernels take widths D % 128 == 0 up to 1024 (every CLIP tower:
+512, 640, 768, 1024), head width 32, 64 or 128, any row count, and tensors
+whose data start on a 16-byte boundary (TMA and 16-byte copies). Where they
+run is still decided by the TPU kernels' VMEM gates (:func:`fits_vmem_attn`,
+:func:`fits_vmem_mlp`, copied here): the fused residual block of
+models/transformer.py takes them so that it computes the numbers the JAX
+reference computes, which runs the unfused XLA block where a gate fails."""
 
 from __future__ import annotations
 
 import torch
 
 from . import _build
+
+
+# The JAX package's VMEM budget (leclip_tpu/ops/block_kernels.py
+# _VMEM_BUDGET_BYTES). The card has no such limit; the gates below only say
+# where the reference runs its fused kernels, and so which rounding points
+# the port must keep.
+_VMEM_BUDGET_BYTES = 12 * 1024 * 1024
+
+
+def fits_vmem_attn(d: int) -> bool:
+    """Whether the reference fuses the attention sub-block at width ``d``:
+    bf16 QKV [D, 3D] + out [D, D] weights within its VMEM budget."""
+    return 2 * (d * 3 * d + d * d) <= _VMEM_BUDGET_BYTES
+
+
+def fits_vmem_mlp(d: int, hidden: int) -> bool:
+    """Whether the reference fuses the MLP sub-block: bf16 fc [D, H] + proj
+    [H, D] weights within its VMEM budget (D <= 886 at H = 4D)."""
+    return 2 * (2 * d * hidden) <= _VMEM_BUDGET_BYTES
 
 
 # ------------------------------ plain versions -------------------------------

@@ -12,7 +12,9 @@ hand-written Hopper kernels and their plain PyTorch versions.
 * ``flash_attention`` — online-softmax attention over ``[B, H, T, D]`` with
   an additive mask. Replaces ``flash_attention`` (``_flash_attention_padded``:
   ``_flash_kernel_single`` / ``_flash_kernel``). CUDA source:
-  ``csrc/flash_attention.cu``.
+  ``csrc/flash_attention.cu`` (bf16: mma.sync on the tensor cores,
+  ``csrc/flash_mma.cuh``; fp32: the CUDA-core loops of ``csrc/attn_simt.cuh``
+  it shares with ``resident_attention``, no TF32).
 
 Each plain version repeats its TPU kernel's rounding points (see the
 functions), and each CUDA kernel rounds at the same points. Each wrapper
@@ -20,7 +22,7 @@ takes the plain version only for tensors on the CPU; for a CUDA tensor it
 launches the kernel or raises, and ``launches`` counts those launches. The
 CUDA kernels take fp32 or bf16, head width 64 (every CLIP preset's), and:
 ``resident_attention`` T % 8 == 0 (the JAX rule) up to what fits shared
-memory (fp32: kv_len ≤ 771, bf16: T ≤ 832; the wrapper raises with the
+memory (fp32: kv_len ≤ 1180, bf16: T ≤ 832; the wrapper raises with the
 limit); ``flash_attention`` any T, keys streamed in blocks."""
 
 from __future__ import annotations
@@ -221,8 +223,9 @@ def _flash_mask(mask, tq: int, tk: int, device):
 def flash_attention(q, k, v, mask=None) -> torch.Tensor:
     """Attention over ``[B, H, T, D]``; ``mask`` is an additive float mask
     broadcastable to ``[Tq, Tk]`` (e.g. causal, or a ``[Tk]`` pad-key row).
-    Any strides with a contiguous head dim go to the kernel as they are; the
-    result is a ``[B, H, Tq, D]`` view of a ``[B, Tq, H, D]`` buffer."""
+    Any 16-byte-aligned strides with a contiguous head dim go to the kernel
+    as they are (others raise); the result is a ``[B, H, Tq, D]`` view of a
+    ``[B, Tq, H, D]`` buffer."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask)
     if q.device.type != "cuda":
@@ -241,13 +244,23 @@ def flash_attention(q, k, v, mask=None) -> torch.Tensor:
         q = q.contiguous()
     if k.stride(-1) != 1 or v.stride() != k.stride():
         k, v = k.contiguous(), v.contiguous()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16 or any(st * x.element_size() % 16 for st in x.stride()[:3]):
+            raise ValueError(f"flash_attention: {name} must start on a 16-byte boundary with "
+                             f"16-byte-aligned (sequence, head, row) strides (the kernels copy "
+                             f"16-byte rows), got strides {tuple(x.stride())}")
     mask_t, rows = _flash_mask(mask, tq, tk, q.device)
+    is_bf16 = q.dtype == torch.bfloat16
+    scratch = None  # bf16 with a [tq, tk] mask: its class map (csrc/flash_mma.cuh)
+    if is_bf16 and rows:
+        scratch = torch.empty(lib.leclip_flash_scratch_bytes(tq, tk), dtype=torch.uint8,
+                              device=q.device)
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     rc = lib.leclip_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if mask_t is None else mask_t.data_ptr(), rows, b, h, tq, tk, flash_block_k(tk),
-        *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
-        int(q.dtype == torch.bfloat16), _stream(q.device))
+        None if mask_t is None else mask_t.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), rows, b, h, tq, tk, flash_block_k(tk),
+        *q.stride()[:3], *k.stride()[:3], *out.stride()[:3], int(is_bf16), _stream(q.device))
     _raise_on(rc, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -273,7 +273,10 @@ def _flash_mask(card, kind, t, seed):
         return torch.where(torch.arange(t, device=card) < t - 3, 0.0, -1e30)
     if kind == "causal":
         return torch.full((t, t), float("-inf"), device=card).triu(1)
-    return _randn(card, (t, t), torch.float32, seed)  # any additive matrix
+    m = _randn(card, (t, t), torch.float32, seed)  # any additive matrix
+    if kind == "masked_row":  # row 5 sees no key: the TPU kernel's uniform p over its pad
+        m[5] = float("-inf")
+    return m
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -284,6 +287,10 @@ def _flash_mask(card, kind, t, seed):
     (2, 4, 264, "none"),      # ViT-L/14: two key blocks of 256
     (2, 4, 264, "causal"),
     (1, 2, 300, "matrix"),
+    (2, 3, 13, "pad"),        # fewer keys than one chunk
+    (1, 2, 77, "masked_row"),
+    (1, 2, 300, "masked_row"),
+    (1, 2, 1300, "causal"),   # fp32 too: softmax blocks of 256 keys (one no longer fits)
 ])
 def test_flash_kernel_matches_plain(card, dtype, b, h, t, mask):
     q, k, v = (_randn(card, (b, h, t, 64), dtype, 20 + i) for i in range(3))
@@ -294,12 +301,24 @@ def test_flash_kernel_matches_plain(card, dtype, b, h, t, mask):
     _close_attn(out, fa.flash_attention_plain(q, k, v, mask=m))
 
 
-def test_flash_kernel_takes_head_views(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_head_views(card, dtype):
     """[B, H, T, D] views of a packed qkv buffer go in without a copy."""
-    qkv = _randn(card, (3, 200, 3 * 256), torch.float32, 30)
+    qkv = _randn(card, (3, 200, 3 * 256), dtype, 30)
     q, k, v = (y.reshape(3, 200, 4, 64).transpose(1, 2) for y in qkv.split(256, dim=-1))
     m = _flash_mask(card, "pad", 200, 0)
     _close_attn(fa.flash_attention(q, k, v, mask=m), fa.flash_attention_plain(q, k, v, mask=m))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wrapper_refuses_misaligned_views(card, dtype):
+    """Views whose rows do not start on 16-byte boundaries raise: the kernels
+    copy 16-byte rows, and the wrapper does not copy them quietly."""
+    qkv = _randn(card, (2, 24, 3 * 128 + 4), dtype, 31)
+    q, k, v = (y.reshape(2, 24, 2, 64).transpose(1, 2)
+               for y in qkv[..., 1:1 + 3 * 128].split(128, dim=-1))
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, k, v)
 
 
 def test_attention_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -311,8 +330,8 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(card):
         fa.resident_attention(q2, k2, v2, 2)
     with pytest.raises(ValueError, match="kv_len"):
         fa.resident_attention(q, k, v, 2, 25)
-    big = _randn(card, (1, 1024, 3 * 64), torch.float32, 43).split(64, dim=-1)
-    with pytest.raises(ValueError, match="shared memory"):   # fp32 scores of 1024 keys
+    big = _randn(card, (1, 1280, 3 * 64), torch.float32, 43).split(64, dim=-1)
+    with pytest.raises(ValueError, match="shared memory"):   # fp32 scores of 1280 keys
         fa.resident_attention(*big, 1)
     with pytest.raises(TypeError):
         fa.resident_attention(q.half(), k.half(), v.half(), 2)

@@ -91,12 +91,15 @@ def _mask(kind, t):
     if kind == "pad":  # the ViT's [T] pad-key row, as attention_from_qkv builds it
         m = np.where(np.arange(t) < t - 3, 0.0, -1e30).astype(np.float32)
     else:
-        m = jcausal(t)
+        m = np.asarray(jcausal(t), np.float32)
+        if kind == "masked_row":  # row 5 sees no key: p uniform over the padded key blocks
+            m = m.copy()
+            m[5] = -np.inf
     return jnp.asarray(m), torch.tensor(m)
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("mask", ["none", "pad", "causal"])
+@pytest.mark.parametrize("mask", ["none", "pad", "causal", "masked_row"])
 @pytest.mark.parametrize("t", [24, 300])
 def test_flash_matches_jax(dtype, mask, t):
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv((1, 2, t, 64), 4), dtype)

@@ -223,16 +223,19 @@ def test_build_hash_covers_every_included_header(tmp_path, monkeypatch):
         f.write("// edited\n")
     again = names()
     assert {k for k in after if after[k] != again[k]} == {"attn_block_bf16", "attn_block_int8",
-                                                          "resident_attention"}
+                                                          "resident_attention",
+                                                          "flash_attention"}
     with open(csrc / "attn_simt.cuh", "a") as f:
         f.write("// edited\n")
     last = names()
     assert {k for k in again if again[k] != last[k]} == {"resident_attention", "flash_attention"}
     # the LN row pass is shared by the bf16 and int8 blocks; the Hopper GEMM
-    # by the bf16 blocks and the int8 attention block's out-projection
+    # by the bf16 blocks and the int8 attention block's out-projection; the
+    # bf16 flash core (on attn_core.cuh's primitives) by flash_attention alone
     for header, users in (("layernorm.cuh", {"attn_block_bf16", "mlp_bf16", "ln_quant",
                                              "attn_block_int8", "mlp_int8"}),
-                          ("gemm_sm90.cuh", {"attn_block_bf16", "mlp_bf16", "attn_block_int8"})):
+                          ("gemm_sm90.cuh", {"attn_block_bf16", "mlp_bf16", "attn_block_int8"}),
+                          ("flash_mma.cuh", {"flash_attention"})):
         prev = names()
         with open(csrc / header, "a") as f:
             f.write("// edited\n")
