@@ -4,10 +4,12 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device: card name, power limit, the nvcc build of every kernel, and in
-     the SASS of the three libraries whose products run on the Hopper GEMM
-     (attn_block_bf16, mlp_bf16, attn_block_int8) the HGMMA (wgmma) and
-     UTMALDG (TMA load) instructions that show it, and in flash_attention's
-     the HMMA (mma.sync) of its bf16 tensor-core path;
+     the SASS of the four libraries whose products run on the Hopper GEMMs
+     the wgmma (HGMMA bf16 in attn_block_bf16, mlp_bf16 and
+     attn_block_int8's out-projection; IGMMA int8 in attn_block_int8 and
+     mlp_int8, which must hold no mma.sync IMMA) and UTMALDG (TMA load)
+     instructions that show it, and in flash_attention's the HMMA (mma.sync)
+     of its bf16 tensor-core path;
   2. kernels: each of the seven hand-written kernels (attn_block_bf16,
      mlp_bf16, ln_quant, attn_block_int8, mlp_int8, resident_attention,
      flash_attention) against its plain PyTorch version on the card at the
@@ -15,8 +17,9 @@ Phases (any failure exits non-zero and prints no result line):
      kernels also at ViT-L/14's 264 tokens, in fp32 and bf16), with
      CUDA-event timings, a PyTorch-ops yardstick and the roofline bound (the
      attention kernels and their yardstick also by device time alone,
-     torch.profiler); and resident_attention's gradient against autograd
-     through its reference;
+     torch.profiler); resident_attention's gradient against autograd
+     through its reference; the int8 GEMM epilogue's branch-free forms
+     against the divisions they replace;
      and the device time and rate of every launch inside the four block
      kernels at the ViT shape (scripts/probe_port_kernels.py, torch.profiler);
   3. the main paths at full ViT-B/16 width (12x768 vision, 12x512 text,
@@ -43,6 +46,7 @@ Imports nothing of JAX or the JAX package."""
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -343,6 +347,12 @@ def phase_kernels_int8(qk, gen):
     int_mm = int_mm_works()
     log(f"[kernels] library yardstick for int8 products: "
         f"{'torch._int_mm' if int_mm else 'bf16 F.linear on dequantized operands'}")
+    bad = qk.int8_exact_forms_check(dev)
+    log(f"[kernels] int8 GEMM epilogue, branch-free forms against the divisions they replace: "
+        f"{bad[0]} of the 1,056,964,609 fp32 reciprocals in [1, 2^126] and {bad[1]} of 1.2e8 "
+        "quantizer codes (3/4 within 4 ulps of a .5 boundary) differ (must be 0, 0)")
+    if bad != (0, 0):
+        raise AssertionError("the int8 epilogue's division-free forms are not exact")
 
     def rn(*shape, std=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * std).bfloat16()
@@ -889,27 +899,33 @@ def phase_unfused_paths(card, inputs):
             "flash_attention": counts_b["flash_attention"]}, bank_counts, counts_a, counts_b
 
 
-# library: the instructions its SASS must hold
+# library: (the instructions its SASS must hold, those it must not)
 SASS_KERNELS = {
-    "attn_block_bf16": ("HGMMA", "UTMALDG"),  # built on gemm_sm90.cuh: wgmma fed by TMA
-    "mlp_bf16": ("HGMMA", "UTMALDG"),
-    "attn_block_int8": ("HGMMA", "UTMALDG"),
-    "flash_attention": ("HMMA",),             # bf16 flash on the tensor cores (mma.sync)
+    "attn_block_bf16": (("HGMMA", "UTMALDG"), ()),  # built on gemm_sm90.cuh: wgmma fed by TMA
+    "mlp_bf16": (("HGMMA", "UTMALDG"), ()),
+    # int8 QKV on gemm_int8.cuh (integer wgmma: IGMMA), bf16 out-proj on gemm_sm90.cuh
+    "attn_block_int8": (("IGMMA", "HGMMA", "UTMALDG"), ("IMMA",)),
+    "mlp_int8": (("IGMMA", "UTMALDG"), ("IMMA",)),  # every product on the int8 wgmma GEMM
+    "flash_attention": (("HMMA",), ()),             # bf16 flash on the tensor cores (mma.sync)
 }
+SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "UTMASTG")
 
 
 def check_sass(build):
-    """The products went through the tensor cores: wgmma (HGMMA) fed by TMA
-    (UTMALDG) in the Hopper GEMM's libraries, mma.sync (HMMA) in bf16
-    flash_attention; count each in the library's SASS (cuobjdump)."""
+    """The products went through the tensor cores: wgmma (HGMMA bf16, IGMMA
+    int8) fed by TMA (UTMALDG) in the Hopper GEMMs' libraries, with no
+    mma.sync int8 product (IMMA) left in the int8 blocks, and mma.sync (HMMA)
+    in bf16 flash_attention; count each in the library's SASS (cuobjdump)."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    for k, need in SASS_KERNELS.items():
+    for k, (need, banned) in SASS_KERNELS.items():
         sass = subprocess.run([cuobjdump, "--dump-sass", str(build._lib_path(k))],
                               capture_output=True, text=True, timeout=120, check=True).stdout
-        n = {op: sass.count(op) for op in ("HGMMA", "HMMA", "UTMALDG", "UTMASTG")}
+        n = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
         log(f"[device] SASS {k}: {n}")
         if not all(n[op] for op in need):
             raise AssertionError(f"{k}: no {' / '.join(need)} in its SASS")
+        if any(n[op] for op in banned):
+            raise AssertionError(f"{k}: {' / '.join(banned)} in its SASS")
 
 
 def phase_launch_times(card):

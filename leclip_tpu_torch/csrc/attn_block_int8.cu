@@ -5,7 +5,7 @@
 // (_attn_block_kernel). The rows arrive already normalised and quantized
 // (xi int8 [R, D], xs fp32 [R]: the ln_quant kernel, launched by the Python
 // wrapper just before). Three launches here:
-//   1. int8_gemm<IEPI_BIAS>:  bf16(acc * (xs * s_col) + b) -> bf16 qkv [R, 3D]
+//   1. hopper_gemm_s8<IEPI_BIAS> (gemm_int8.cuh): bf16(acc * (xs * s_col) + b) -> bf16 qkv [R, 3D]
 //   2. attn_core (attn_core.cuh): per (sequence, head) softmax attention -> bf16 [R, D]
 //   3. hopper_gemm<RESID_PLUS_ACC> (gemm_sm90.cuh): bf16((x + att @ W_out) + b)
 // Launches 2 and 3 are the bf16 block's own: the TPU kernel keeps the
@@ -16,11 +16,12 @@
 //
 // Bound on the H100: 6*R*D^2 int8 operations + (2*R*D^2 + 4*B*D*pairs) bf16
 // flops over ~4*R*D + 5*D^2 bytes, far above the ridge, so tensor-core
-// operations bound it. The QKV product runs on the int8 tensor cores
-// (mma.sync m16n8k32, 128x128x128 tiles, cp.async three stages deep,
-// gemm_int8.cuh); the bf16 out-projection runs on wgmma fed by TMA
-// (gemm_sm90.cuh). An int8 wgmma GEMM and a single fused launch are later
-// work.
+// operations bound it. Both products run on wgmma fed by TMA, one
+// persistent warp-specialised block per SM: the QKV product on the int8
+// tensor cores (m64n256k32 .s8, both operands K-major as the int8 weights
+// are kept, the fp32 rescale + bias in the accumulator registers), the bf16
+// out-projection on gemm_sm90.cuh. What is left above the bound is the HBM
+// round trip of qkv [R, 3D] and att [R, D], which a fused launch removes.
 #include "attn_core.cuh"
 #include "gemm_int8.cuh"
 #include "gemm_sm90.cuh"

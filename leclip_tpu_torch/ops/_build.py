@@ -51,6 +51,7 @@ KERNELS: Dict[str, tuple] = {
     }),
     "mlp_int8": ("mlp_int8.cu", {
         "leclip_mlp_int8": [_P] * 12 + [_I] * 3 + [_P],
+        "leclip_int8_exact_forms_check": [ctypes.c_ulonglong, _L, _P, _P],
     }),
     "resident_attention": ("resident_attention.cu", {
         "leclip_resident_attention": [_P] * 2 + [_I] * 6 + [_P],

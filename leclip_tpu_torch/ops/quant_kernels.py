@@ -11,7 +11,8 @@ their plain PyTorch versions (counterpart of leclip_tpu/ops/quant_kernels.py).
 * ``mlp_int8`` — x + int8 proj(requantize(QuickGELU(int8 fc(LN(x))))), the
   hidden kept in fp32 and requantized per row over its whole 4D width.
   Replaces ``mlp_int8`` (``_mlp_int8_kernel``). CUDA source:
-  ``csrc/mlp_int8.cu``.
+  ``csrc/mlp_int8.cu``. ``mlp_int8_with_hidden`` also returns the hidden
+  codes and scales the proj product read.
 
 Per-row quantization needs the absmax of a whole row before the first
 product, so the LN cannot ride a GEMM's tile loads as it does in the bf16
@@ -21,8 +22,13 @@ row go through HBM, half the bytes of bf16. The MLP's requantization needs
 the absmax of the fp32 hidden row, 3072 wide at ViT-B/16: the fc product is
 run twice — once for the row absmax, once to quantize with the known scale —
 which is bit-identical to staging the fp32 hidden (integer sums are exact)
-and moves a quarter of the bytes. What bounds each kernel on the H100 is in
-the note at the top of its source.
+and moves a quarter of the bytes. Every int8 product of both blocks runs on
+one GEMM, ``csrc/gemm_int8.cuh``: wgmma on the int8 tensor cores fed by TMA,
+with the rescale, QuickGELU, quantizer and residual in the accumulator
+registers in the TPU kernels' fp32 order; its epilogue uses branch-free
+forms of the divisions that give the same values, which
+``int8_exact_forms_check`` verifies on the card. What bounds each kernel on
+the H100 is in the note at the top of its source.
 
 Each wrapper takes the plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises; it never falls back. ``launches`` on
@@ -75,6 +81,12 @@ def mlp_int8_plain(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b,
     rescale + bias + QuickGELU in fp32 (never rounded to bf16), the whole
     hidden row requantized, exact integer proj, rescale + bias, the residual
     sum rounded once."""
+    return _mlp_int8_parts_plain(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b,
+                                 eps)[0]
+
+
+def _mlp_int8_parts_plain(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b, eps):
+    """(out, hidden codes [rows, H] int8, hidden scales [rows, 1] fp32)."""
     shape = x.shape
     d = shape[-1]
     x32 = x.reshape(-1, d).float()
@@ -84,7 +96,7 @@ def mlp_int8_plain(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b,
     hi, hs = quantize_rows(h)
     o = int_matmul(hi, pj_wi8) * (hs * pj_s.float()[None])
     o = o + pj_b.float()[None]
-    return (x32 + o).to(x.dtype).reshape(shape)
+    return (x32 + o).to(x.dtype).reshape(shape), hi, hs
 
 
 # --------------------------------- wrappers ----------------------------------
@@ -193,6 +205,24 @@ def mlp_int8(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b,
     if x.device.type == "cpu":
         return mlp_int8_plain(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b,
                               eps=eps)
+    return _mlp_int8_cuda(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b, eps)[0]
+
+
+def mlp_int8_with_hidden(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b,
+                         eps: float = 1e-5):
+    """:func:`mlp_int8`, also returning the requantized hidden the proj
+    product read: (out, codes [rows, H] int8, scales [rows, 1] fp32)."""
+    if x.device.type == "cpu":
+        return _mlp_int8_parts_plain(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s,
+                                     pj_b, eps)
+    out, hi, rowmax = _mlp_int8_cuda(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s,
+                                     pj_b, eps)
+    # the kernel's quant_scale, max(absmax / 127, 1e-12), by a true division
+    # (a Python-number divisor may become a product with its reciprocal)
+    return out, hi, (rowmax[:, None] / torch.full((1, 1), 127.0, device=x.device)).clamp_min(1e-12)
+
+
+def _mlp_int8_cuda(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b, eps):
     if x.device.type != "cuda":
         raise ValueError(f"mlp_int8: unsupported device {x.device}")
     d = x.shape[-1]
@@ -217,7 +247,20 @@ def mlp_int8(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b,
         rowmax.data_ptr(), hi.data_ptr(), out.data_ptr(), rows, d, hidden, _stream(dev))
     _raise_on(rc, "mlp_int8")
     mlp_int8.launches += 1
-    return out
+    return out, hi, rowmax
 
 
 mlp_int8.launches = 0
+
+
+def int8_exact_forms_check(device, n_pairs: int = 120_000_000, seed: int = 7):
+    """(reciprocals, codes): how often the int8 GEMM epilogue's division-free
+    forms (csrc/gemm_int8.cuh) differ, on the card, from the divisions they
+    replace — over every fp32 in [1, 2^126], and over ``n_pairs`` seeded
+    quantizer pairs, three in four within 4 ulps of a .5 boundary. The fc
+    passes of ``mlp_int8`` are its function only if both are 0."""
+    bad = torch.empty(2, dtype=torch.int64, device=device)
+    rc = _build.load("mlp_int8").leclip_int8_exact_forms_check(seed, n_pairs, bad.data_ptr(),
+                                                               _stream(device))
+    _raise_on(rc, "int8_exact_forms_check")
+    return tuple(bad.tolist())

@@ -67,13 +67,15 @@ def launch_times(shape: str = "vit", reps: int = 5) -> dict:
         "mlp_bf16": [("ln_bf16_rows", 4 * rows * d, "GB/s"),
                      ("hopper_gemm<1>", 8 * rows * d * d, "TFLOP/s"),
                      ("hopper_gemm<3>", 8 * rows * d * d, "TFLOP/s")],
+        # the int8 wgmma GEMM (csrc/gemm_int8.cuh): QKV, fc pass 1 (absmax),
+        # fc pass 2 (codes), proj
         "attn_block_int8": [("ln_quant_rows", 3 * rows * d, "GB/s"),
-                            ("int8_gemm<0>", 6 * rows * d * d, "TOP/s"), core,
+                            ("hopper_gemm_s8<0>", 6 * rows * d * d, "TOP/s"), core,
                             ("hopper_gemm<2>", 2 * rows * d * d, "TFLOP/s")],
         "mlp_int8": [("ln_quant_rows", 3 * rows * d, "GB/s"),
-                     ("int8_gemm<1>", 8 * rows * d * d, "TOP/s"),
-                     ("int8_gemm<2>", 8 * rows * d * d, "TOP/s"),
-                     ("int8_gemm<3>", 8 * rows * d * d, "TOP/s")],
+                     ("hopper_gemm_s8<1>", 8 * rows * d * d, "TOP/s"),
+                     ("hopper_gemm_s8<2>", 8 * rows * d * d, "TOP/s"),
+                     ("hopper_gemm_s8<3>", 8 * rows * d * d, "TOP/s")],
     }
     out = {}
     for name, fn in calls.items():

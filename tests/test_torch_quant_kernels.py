@@ -132,6 +132,33 @@ def test_mlp_int8_matches_jax_kernel(case, dtype):
     torch.testing.assert_close(flat.reshape(b, t, d), out, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mlp_int8_with_hidden_returns_the_codes_its_proj_reads(case):
+    """The hidden codes and scales mlp_int8_with_hidden returns are the fc
+    hidden QuickGELU(fc(LN(x))) requantized per row (within half a step of
+    it, computed here in fp64), and the proj product reads exactly them."""
+    b, t, d, *_ = CASES[case]
+    jl, jb, tl, tb = _layer(d, "fp32", seed=12)
+    jx, tx = _x(b, t, d, "fp32", seed=6)
+    args = _mlp_args(tl, tb)
+    out, hi, hs = tqk.mlp_int8_with_hidden(tx, *args)
+    torch.testing.assert_close(out, tqk.mlp_int8(tx, *args), rtol=0, atol=0)
+    _close(out, jqk.mlp_int8(jx, *_mlp_args(jl, jb)), "fp32", 1e-5)
+    assert hi.dtype == torch.int8 and hi.shape == (b * t, 4 * d) and hs.shape == (b * t, 1)
+    assert hi.abs().amax(-1).eq(127).all()  # every row's absmax maps to the end code
+    xi, xs = tqk.ln_quant(tx, *tl["ln2"])
+    (fc_w, fc_s), fc_b = tl["mlp"]["fc"], tb["mlp"]["fc_bias"]
+    h = (xi.reshape(-1, d).double() @ fc_w.double()) * (xs.reshape(-1, 1).double()
+                                                        * fc_s.double()) + fc_b.double()
+    h = h * torch.sigmoid(1.702 * h)
+    hs64 = hs.double()
+    assert ((hi.double() * hs64 - h).abs() <= 0.5 * hs64 * (1 + 1e-4) + 1e-7).all()
+    (pj_w, pj_s), pj_b = tl["mlp"]["proj"], tb["mlp"]["proj_bias"]
+    o = (hi.double() @ pj_w.double()) * (hs64 * pj_s.double()) + pj_b.double()
+    torch.testing.assert_close(out.reshape(-1, d).double(), tx.reshape(-1, d).double() + o,
+                               rtol=0, atol=2e-6)
+
+
 def test_int8_pad_keys_do_not_leak():
     """Changing a pad key row (col ≥ kv_len) leaves the real rows unchanged."""
     b, t, d, h, kv, _ = CASES["vit_pad_keys"]
@@ -206,7 +233,8 @@ def test_build_hash_covers_every_included_header(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert set(_build.source_files("mlp_int8.cu")) == {"mlp_int8.cu", "gemm_int8.cuh",
-                                                       "quant.cuh", "layernorm.cuh", "gemm.cuh"}
+                                                       "gemm_sm90.cuh", "quant.cuh",
+                                                       "layernorm.cuh", "gemm.cuh"}
     assert {"attn_core.cuh", "gemm_sm90.cuh", "layernorm.cuh"} <= set(
         _build.source_files("attn_block_bf16.cu"))
 
@@ -229,12 +257,15 @@ def test_build_hash_covers_every_included_header(tmp_path, monkeypatch):
         f.write("// edited\n")
     last = names()
     assert {k for k in again if again[k] != last[k]} == {"resident_attention", "flash_attention"}
-    # the LN row pass is shared by the bf16 and int8 blocks; the Hopper GEMM
-    # by the bf16 blocks and the int8 attention block's out-projection; the
-    # bf16 flash core (on attn_core.cuh's primitives) by flash_attention alone
+    # the LN row pass is shared by the bf16 and int8 blocks; the Hopper GEMM's
+    # TMA, mbarrier and wgmma helpers by every block (the int8 GEMM is built
+    # on them); the int8 GEMM by the two int8 blocks; the bf16 flash core (on
+    # attn_core.cuh's primitives) by flash_attention alone
     for header, users in (("layernorm.cuh", {"attn_block_bf16", "mlp_bf16", "ln_quant",
                                              "attn_block_int8", "mlp_int8"}),
-                          ("gemm_sm90.cuh", {"attn_block_bf16", "mlp_bf16", "attn_block_int8"}),
+                          ("gemm_sm90.cuh", {"attn_block_bf16", "mlp_bf16", "attn_block_int8",
+                                             "mlp_int8"}),
+                          ("gemm_int8.cuh", {"attn_block_int8", "mlp_int8"}),
                           ("flash_mma.cuh", {"flash_attention"})):
         prev = names()
         with open(csrc / header, "a") as f:
