@@ -31,18 +31,29 @@ Phases (any failure exits non-zero and prints no result line):
      that each path ran its own kernels in every layer and none of the other
      path's; impreds.json is written and read back; the bf16 engine is held
      against the unfused plain path on a small input, and the int8 engine and
-     bank against the bf16 ones;
+     bank against the bf16 ones; then the bf16 ViT batch split into its
+     stages by CUDA events (host staging, resize + normalise, patch
+     embedding, block kernels, retrieval, scoring + fusion);
   4. the unfused paths on the same weights in fp32: TEST.PREC fp32 (the
      reference-parity precision; fp32 caption bank, fp32 prompt features),
      whose image tower runs resident_attention in every layer, and one batch
      with DenseFlags(attention_impl="pallas"), which runs flash_attention in
      every layer of the image tower and of the prompt-feature text pass; both
-     held against an attention_impl="xla" plain fp32 engine.
+     held against an attention_impl="xla" plain fp32 engine;
+  5. the RN50 scoring path that every shipped recipe runs, at full RN50
+     geometry with seeded random bf16 weights and random BN statistics:
+     TEST.PREC auto (→ bf16 for a ResNet tower) with its 8,192-row bf16
+     caption bank through attn_block_bf16 + mlp_bf16, make_engine, three
+     staged batches and run_full_inference → impreds.json, the image tower
+     launching no hand-written kernel; then TEST.PREC fp32; bf16 held
+     against fp32, the fp32 tower held to full fp32 with TF32 switched on
+     around it; and its bf16 batch split into stages as in phase 3.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or the JAX package."""
 
+import contextlib
 import json
 import math
 import os
@@ -399,6 +410,7 @@ def phase_kernels_int8(qk, gen):
             "ln_quant": dict(
                 max_abs_err=l_err,
                 ms=cuda_ms(lambda: qk.ln_quant(x, *q8["ln1"]), 10),
+                device_ms=device_ms(lambda: qk.ln_quant(x, *q8["ln1"])),
                 plain_ms=cuda_ms(lambda: qk.ln_quant_plain(x, *q8["ln1"]), 3),
                 library_ms=cuda_ms(lambda: lib_ln_quant(x, *q8["ln1"]), 10),
                 bound_ms=l_bound[0], bound_by=l_bound[1]),
@@ -420,6 +432,10 @@ def phase_kernels_int8(qk, gen):
             log(f"  {k} [{tag}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                 f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']})")
+        r = res[tag]["ln_quant"]
+        log(f"  ln_quant [{tag}]: device time alone {r['device_ms']:.4f} ms, "
+            f"{(3 * rows * d + 4 * rows) / r['device_ms'] / 1e9:.3f} TB/s of the "
+            f"{3 * rows * d + 4 * rows:.4g} bytes it must move")
         del x, attn, mlp, blocks, q8, p
         torch.cuda.empty_cache()
     return res
@@ -575,7 +591,7 @@ def synthetic_captions(n, gen_np):
     return toks
 
 
-def build_bank(prec, params, clip_cfg, toks, card):
+def build_bank(prec, params, clip_cfg, toks, card, label="main"):
     """The caption bank through the kernels of precision ``prec``, first call
     and a warm second pass. Returns (bank, launch counts of the first call).
     For "fp32" it is the bank CLI's default precision: the fp32 tower as
@@ -597,7 +613,7 @@ def build_bank(prec, params, clip_cfg, toks, card):
         rates.append((which, BANK_ROWS / (time.perf_counter() - t0)))
         if which == "first call":
             counts, first = launches.launch_counts(), bank
-    log(f"[main:{prec}] caption bank {bank.shape}: launches {counts} (12 layers x {n_pass} "
+    log(f"[{label}:{prec}] caption bank {bank.shape}: launches {counts} (12 layers x {n_pass} "
         f"batches of {batch})")
     if not np.isfinite(bank).all() or bank.shape != (BANK_ROWS, clip_cfg.embed_dim):
         raise AssertionError("caption bank not finite / wrong shape")
@@ -606,7 +622,7 @@ def build_bank(prec, params, clip_cfg, toks, card):
     if not np.array_equal(bank, first):
         raise AssertionError("the second bank pass gave different rows")
     expect_launches(f"{prec} bank", counts, "plain" if prec == "fp32" else prec, 12 * n_pass)
-    log(f"[main:{prec}] captions/s " + ", ".join(f"{r:.1f} ({w})" for w, r in rates)
+    log(f"[{label}:{prec}] captions/s " + ", ".join(f"{r:.1f} ({w})" for w, r in rates)
         + f" ({BANK_ROWS} captions) on {card}")
     return bank, counts
 
@@ -628,7 +644,20 @@ def expect_launches(what, counts, path, n):
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 
 
-def score_path(prec, opt_prec, params, clip_cfg, specs, bank, freq, images, card):
+# (tower, path): the engine make_engine must build — (precision, fused bf16
+# blocks, int8 weights, compute dtype) — and the kernels its scoring launches
+# in each layer of the image tower (PATH_KERNELS)
+ENGINES = {
+    ("vit", "bf16"): (("bf16", True, False, torch.bfloat16), "bf16"),
+    ("vit", "int8"): (("int8", False, True, torch.bfloat16), "int8"),
+    ("vit", "fp32"): (("bf16", False, False, torch.float32), "fp32"),
+    # a ResNet tower holds no hand-written kernel (cuDNN convs, a plain pool)
+    ("rn", "bf16"): (("bf16", False, False, torch.bfloat16), "plain"),
+    ("rn", "fp32"): (("bf16", False, False, torch.float32), "plain"),
+}
+
+
+def score_path(prec, opt_prec, params, clip_cfg, specs, bank, freq, images, card, tower="vit"):
     """make_engine under TEST.PREC ``opt_prec`` (must resolve to ``prec``),
     three staged batches, impreds.json. Returns (engine, scores, counts)."""
     from leclip_tpu_torch.engine.config import setup_config
@@ -636,17 +665,16 @@ def score_path(prec, opt_prec, params, clip_cfg, specs, bank, freq, images, card
     from leclip_tpu_torch.ops import launches
     from leclip_tpu_torch.ops.ensemble import write_impreds
 
+    tag = f"main:{prec}" if tower == "vit" else f"{tower}50:{prec}"
     cfg = setup_config(opts=["TEST.PREC", opt_prec, "TEST.multi_scale", "(2, 3, 4)",
                              "TEST.use_freq", "True"])
     engine = make_engine(cfg, params, clip_cfg, specs, caption_bank=bank, freq_stats=freq,
                          device=DEVICE)
-    want = {"bf16": ("bf16", True, False, torch.bfloat16),    # (precision, fused, q8, dtype)
-            "int8": ("int8", False, True, torch.bfloat16),
-            "fp32": ("bf16", False, False, torch.float32)}[prec]
+    want, launch_path = ENGINES[(tower, prec)]
     got = (engine.precision, engine._fused, engine._q8 is not None, engine.compute_dtype)
     if got != want:
         raise AssertionError(f"TEST.PREC {opt_prec} gave (precision, fused, q8, compute dtype) "
-                             f"{got}: expected {want}, the {prec} path")
+                             f"{got}: expected {want}, the {tag} path")
     crops = N_IMAGES * (1 + engine.n_blocks)
     warm = list(engine.run_batches_fused_staged(iter([images])))[0]  # first-call setup
     n_batches = 3
@@ -657,17 +685,17 @@ def score_path(prec, opt_prec, params, clip_cfg, specs, bank, freq, images, card
     torch.cuda.synchronize()
     score_s = time.perf_counter() - t0
     counts = launches.launch_counts()
-    log(f"[main:{prec}] TEST.PREC {opt_prec} -> engine precision {engine.precision}, compute "
+    log(f"[{tag}] TEST.PREC {opt_prec} -> engine precision {engine.precision}, compute "
         f"{str(engine.compute_dtype).split('.')[-1]}; {N_IMAGES} images 480x640 "
-        f"-> {crops} crops per batch; scoring launches {counts} (12 layers x {n_batches} "
-        f"batches)")
-    expect_launches(f"{prec} scoring", counts, prec, 12 * n_batches)
+        f"-> {crops} crops per batch; scoring launches {counts} (expected: "
+        f"{PATH_KERNELS[launch_path] or 'none'} in each of 12 layers x {n_batches} batches)")
+    expect_launches(f"{tag} scoring", counts, launch_path, 12 * n_batches)
     fused = outs[0]
     if fused.shape != (N_IMAGES, 80) or not np.isfinite(fused).all():
         raise AssertionError(f"fused scores bad: shape {fused.shape}")
     if any(not np.array_equal(o, fused) for o in outs) or not np.allclose(warm, fused):
         raise AssertionError("repeated batches gave different scores")
-    log(f"[main:{prec}] crop-forwards/s {n_batches * crops / score_s:.1f} ({n_batches} batches "
+    log(f"[{tag}] crop-forwards/s {n_batches * crops / score_s:.1f} ({n_batches} batches "
         f"of {crops} crops in {score_s:.3f} s, host prep staged ahead) on {card}")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "impreds.json")
@@ -675,7 +703,7 @@ def score_path(prec, opt_prec, params, clip_cfg, specs, bank, freq, images, card
         back = np.asarray(json.load(open(path)))
     if back.shape != (N_IMAGES, 80) or not np.allclose(back, fused):
         raise AssertionError("impreds.json did not read back")
-    log(f"[main:{prec}] impreds.json: {back.shape[0]} rows x {back.shape[1]} classes, finite, "
+    log(f"[{tag}] impreds.json: {back.shape[0]} rows x {back.shape[1]} classes, finite, "
         f"read back; first row head {np.round(back[0, :4], 4).tolist()}")
     return engine, fused, counts
 
@@ -789,7 +817,265 @@ def phase_main_paths(card, inputs):
         raise AssertionError("the int8 path disagrees with the bf16 path")
     total = {k: sum(c[p][k] for c in (bank_counts, score_counts) for p in c)
              for k in bank_counts["bf16"]}
-    return total, bank_counts, score_counts
+    stages = stage_split("vit:bf16", engines["bf16"], images, card)
+    return total, bank_counts, score_counts, stages
+
+
+def tower_parts(engine):
+    """The engine's image tower as two timed parts: (stem, head). ViT: the
+    patch embedding (patchify, class token, positions, ln_pre, pad), then
+    the twelve blocks (the block kernels) with ln_post and the projection;
+    ResNet: the stem and trunk (cuDNN convs), then the single-query pool and
+    the dense projection. Both end in models/dense_clip.py's ImageFeatures,
+    held against the engine's own ``_features``."""
+    from leclip_tpu_torch.models.dense_clip import ImageFeatures, _normalize
+    from leclip_tpu_torch.models.resnet import attention_pool, project_dense, resnet_features
+    from leclip_tpu_torch.models.transformer import layer_norm, run_transformer
+    from leclip_tpu_torch.models.vit import patchify
+
+    cfg, v = engine.clip_cfg, engine.clip_params["visual"]
+    if not cfg.is_vit:
+        def head(feat):
+            g, _ = attention_pool(feat, v["attnpool"], cfg.vision_heads, if_pos=False,
+                                  global_only=True)
+            return ImageFeatures(_normalize(g), _normalize(project_dense(feat, v["attnpool"])))
+
+        return (lambda flat: resnet_features(flat, v)), head
+
+    def stem(flat):
+        tokens = patchify(flat, v["patch_kernel"], cfg.vision_patch_size)
+        b, n, width = tokens.shape
+        cls = v["class_embedding"].to(flat.dtype).expand(b, 1, width)
+        tokens = torch.cat([cls, tokens], dim=1) + v["positional_embedding"][: n + 1].to(
+            flat.dtype)
+        tokens = layer_norm(tokens, v["ln_pre"]["scale"], v["ln_pre"]["bias"])
+        return F.pad(tokens, (0, 0, 0, (-(n + 1)) % 8)), n + 1
+
+    def head(st):
+        tokens, n_real = st
+        flags = next(iter(engine.models.values())).flags
+        tokens = run_transformer(tokens, v["blocks"], cfg.vision_heads,
+                                 impl=flags.attention_impl,
+                                 kv_len=n_real if tokens.shape[1] > n_real else None,
+                                 q8=engine._q8, fused=engine._fused)[:, :n_real]
+        tokens = layer_norm(tokens, v["ln_post"]["scale"], v["ln_post"]["bias"])
+        proj = v["proj"].to(tokens.dtype)
+        return ImageFeatures(_normalize(tokens[:, 0] @ proj), _normalize(tokens[:, 1:] @ proj))
+
+    return stem, head
+
+
+STAGES = ("host staging (pad, boxes, upload)", "resize + normalise",
+          "patch embedding / stem + trunk", "block kernels + head / pool + dense projection",
+          "retrieval", "scoring + fusion + routing")
+
+
+def stage_split(tag, engine, images, card, reps=3):
+    """Per-stage times of one scored batch: the host's staging by the host
+    clock (it ends in an upload and a synchronise), each device stage by
+    CUDA events recorded between the engine's own steps; the median of
+    ``reps`` warm batches. The staged result is held against
+    ``dispatch_staged_fused``."""
+    stem, head = tower_parts(engine)
+    runs = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged = engine.stage_batch_fused(images)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        with torch.inference_mode():
+            ev[0].record()
+            crops = engine._crops(staged)
+            flat = crops.reshape((-1,) + crops.shape[2:])
+            ev[1].record()
+            mid = stem(flat)
+            ev[2].record()
+            feats = head(mid)
+            ev[3].record()
+            aug, scores = engine._retrieve(feats)
+            ev[4].record()
+            fused = engine._score(feats, aug, scores, staged.batch, staged.n_boxes)
+            ev[5].record()
+        torch.cuda.synchronize()
+        runs.append([host_ms] + [ev[i].elapsed_time(ev[i + 1]) for i in range(5)])
+    ms = np.median(np.asarray(runs[1:]), axis=0)
+    want = engine.dispatch_staged_fused(staged)
+    torch.cuda.synchronize()
+    err = (fused.float() - want.float()).abs().max().item()
+    if err > 1e-5:
+        raise AssertionError(f"{tag} stage split: scores differ from the engine's by {err}")
+    total = float(ms.sum())
+    log(f"[stages:{tag}] one batch of {flat.shape[0]} crops, median of {reps} warm batches, on "
+        f"{card} (scores equal to dispatch_staged_fused's within {err:.3g}):")
+    for name, t in zip(STAGES, ms):
+        log(f"  {t:9.3f} ms  {100 * t / total:5.1f}%  {name}")
+    log(f"  {total:9.3f} ms  in all (the staged loop overlaps the host's staging with compute)")
+    return dict(zip(STAGES, (float(t) for t in ms)))
+
+
+def rn_tower_flops(cfg, res=224) -> float:
+    """Operations (2 per multiply-add) of one crop through the ResNet tower
+    as the scoring path runs it: the 3-conv stem, every bottleneck's convs
+    (1x1 and 3x3 at the block's input grid, the last 1x1 and the downsample
+    after the anti-aliasing pool), the single-query pool (k, v over the
+    H*W + 1 tokens, q and c_proj over one) and the dense projection
+    (v_proj, c_proj at every position)."""
+    w = cfg.vision_width
+    h = res // 2
+    f = 2 * h * h * 9 * (3 * (w // 2) + (w // 2) * (w // 2) + (w // 2) * w)
+    h //= 2
+    cin = w
+    for i, n in enumerate(cfg.vision_layers):
+        planes = w * 2 ** i
+        cout = 4 * planes
+        for b in range(n):
+            stride = 2 if (b == 0 and i > 0) else 1
+            ho = h // stride
+            f += 2 * h * h * (cin * planes + 9 * planes * planes) + 2 * ho * ho * planes * cout
+            if stride > 1 or cin != cout:
+                f += 2 * ho * ho * cin * cout
+            h, cin = ho, cout
+    e, t = w * 32, h * h + 1
+    f += 2 * (2 * t + 1) * e * e + 2 * e * cfg.embed_dim + 4 * t * e
+    f += 2 * h * h * (e * e + e * cfg.embed_dim)
+    return float(f)
+
+
+def randomize_bn(tree, gen):
+    """Every batch norm of a ResNet tree with random running statistics and
+    affine (seeded): the JAX init zeroes each bn3 scale, which would leave
+    every residual branch out of the bf16 / fp32 comparison."""
+    if isinstance(tree, dict):
+        if set(tree) == {"scale", "bias", "mean", "var"}:
+            def u(lo, hi, like):
+                r = torch.rand(like.shape, generator=gen, device=like.device)
+                return (lo + (hi - lo) * r).to(like.dtype)
+
+            def n(std, like):
+                return (torch.randn(like.shape, generator=gen, device=like.device) * std
+                        ).to(like.dtype)
+
+            return {"scale": u(0.5, 1.0, tree["scale"]), "bias": n(0.1, tree["bias"]),
+                    "mean": n(0.1, tree["mean"]), "var": u(0.5, 1.5, tree["var"])}
+        return {k: randomize_bn(v, gen) for k, v in tree.items()}
+    return tree
+
+
+def phase_rn50(card, inputs):
+    """The RN50 scoring path, as every shipped recipe runs it: full RN50
+    geometry ((3, 4, 6, 3) bottlenecks at width 64, embed 1024, 32 pool
+    heads; text 12x512), seeded random bf16 weights with random BN
+    statistics. TEST.PREC auto (→ bf16 for a ResNet tower): the 8,192-row
+    bf16 caption bank through the block kernels, six members, make_engine,
+    three staged batches and run_full_inference over PNG files →
+    impreds.json; the image tower launches no hand-written kernel. Then
+    TEST.PREC fp32 on the same weights widened (the fp32 bank, plain). bf16
+    held against fp32; the fp32 tower's convolutions held to full fp32 with
+    TF32 switched on around the call."""
+    from PIL import Image
+
+    from leclip_tpu_torch.device import cast_floating
+    from leclip_tpu_torch.inference.pipeline import run_full_inference
+    from leclip_tpu_torch.models import resnet
+    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
+    from leclip_tpu_torch.models.dense_clip import DenseFlags, encode_image_features
+
+    _, _, toks, freq, images = inputs
+    cfg = PRESETS["RN50"]
+    gen = torch.Generator(device=DEVICE).manual_seed(50)
+    params = init_clip_params(gen, cfg, dtype=torch.bfloat16, device=DEVICE)
+    params["visual"] = randomize_bn(params["visual"], gen)
+    crops = N_IMAGES * 305
+    flops = rn_tower_flops(cfg) * crops
+    log(f"[rn50] RN50 bf16 params: vision {cfg.vision_layers} bottlenecks at width "
+        f"{cfg.vision_width}, embed {cfg.embed_dim}, {cfg.vision_heads} pool heads; text "
+        f"{cfg.transformer_layers}x{cfg.transformer_width}; BN statistics random. Tower "
+        f"operations {rn_tower_flops(cfg) / 1e9:.3f} GFLOP a crop, {flops / 1e12:.3f} TFLOP a "
+        f"{crops}-crop batch: bound {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms in bf16, "
+        f"{flops / PEAK_FP32_FLOPS * 1e3:.3f} ms in fp32 (operations at peak)")
+
+    out = {}
+    for prec in ("bf16", "fp32"):
+        dt = torch.bfloat16 if prec == "bf16" else torch.float32
+        p = params if prec == "bf16" else cast_floating(params, torch.float32)
+        specs = build_members(p, cfg, dt)
+        bank, bank_counts = build_bank(prec, p, cfg, toks, card, label="rn50")
+        engine, fused, counts = score_path(prec, "auto" if prec == "bf16" else "fp32", p, cfg,
+                                           specs, bank, freq, images, card, tower="rn")
+        out[prec] = dict(params=p, engine=engine, fused=fused, bank=bank,
+                         bank_counts=bank_counts, counts=counts)
+
+    # run_full_inference, the CLI's own loop, on the bf16 engine
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"img{i}.png") for i in range(len(images))]
+        for path, im in zip(paths, images):
+            Image.fromarray(im).save(path)
+        out_json = os.path.join(tmp, "impreds.json")
+        full = run_full_inference(out["bf16"]["engine"], paths, batch_size=N_IMAGES,
+                                  out_json=out_json, progress=False)
+        back = np.asarray(json.load(open(out_json)))
+    if not (np.allclose(full, out["bf16"]["fused"], rtol=0, atol=1e-6)
+            and np.allclose(back, full) and back.shape == (N_IMAGES, 80)):
+        raise AssertionError("rn50: run_full_inference disagrees with the staged batches")
+    log(f"[rn50:bf16] run_full_inference over {len(paths)} PNG files -> impreds.json "
+        f"{back.shape}, equal to the staged batches")
+
+    # bf16 against fp32: each path's own crops and tower, then the scores
+    feats = {}
+    with torch.inference_mode():
+        for prec in ("bf16", "fp32"):
+            e = out[prec]["engine"]
+            flat = e._crops(e.stage_batch_fused(images)).flatten(0, 1)
+            feats[prec] = e._features(flat)
+    cos_g = (feats["bf16"].global_feat.float() * feats["fp32"].global_feat.float()
+             ).sum(-1).min().item()
+    cos_d = (feats["bf16"].spatial_feats.float() * feats["fp32"].spatial_feats.float()
+             ).sum(-1).min().item()
+    s16, s32 = out["bf16"]["fused"], out["fp32"]["fused"]
+    corr = float(np.corrcoef(s16.ravel(), s32.ravel())[0, 1])
+    bank_cos = float((out["bf16"]["bank"] * out["fp32"]["bank"]).sum(-1).min())
+    log(f"[rn50] bf16 path against fp32, {flat.shape[0]} crops: image features min cosine "
+        f"global {cos_g:.5f}, dense {cos_d:.5f} (> 0.99); fused scores corr {corr:.6f} "
+        f"(> 0.999), max|d| {np.abs(s16 - s32).max():.4g}; bank rows min cosine {bank_cos:.5f}")
+    if not (cos_g > 0.99 and cos_d > 0.99 and corr > 0.999):
+        raise AssertionError("rn50: the bf16 path disagrees with the fp32 path")
+
+    # the fp32 tower runs in full fp32 whatever the caller's TF32 setting
+    p32 = out["fp32"]["params"]
+    x = flat[:64].float()
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        with torch.inference_mode():
+            got = resnet.resnet_features(x, p32["visual"])
+            g_got = encode_image_features(p32, cfg, x, DenseFlags()).global_feat
+            guard = resnet._no_tf32
+            resnet._no_tf32 = contextlib.nullcontext  # what TF32 would have given
+            try:
+                tf32 = resnet.resnet_features(x, p32["visual"])
+            finally:
+                resnet._no_tf32 = guard
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), torch.inference_mode():
+            torch.backends.cuda.matmul.allow_tf32 = False
+            want = resnet.resnet_features(x, p32["visual"])
+            g_want = encode_image_features(p32, cfg, x, DenseFlags()).global_feat
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    scale = want.abs().max().item()
+    d_port = max((got - want).abs().max().item() / scale,
+                 (g_got - g_want).abs().max().item())
+    d_tf32 = (tf32 - want).abs().max().item() / scale
+    log(f"[rn50:fp32] with TF32 switched on around the call, {x.shape[0]} crops: the port's "
+        f"fp32 trunk map and features against cudnn.flags(allow_tf32=False): {d_port:.3g} "
+        f"(<= 1e-4, of max|map| {scale:.4g}); the same trunk with the port's guard lifted: "
+        f"{d_tf32:.3g}")
+    if d_port > 1e-4:
+        raise AssertionError("rn50: the fp32 tower ran in TF32")
+    stages = stage_split("rn50:bf16", out["bf16"]["engine"], images, card)
+    return ({k: out["bf16"]["bank_counts"][k] + out["bf16"]["counts"][k]
+             for k in out["bf16"]["counts"]}, out["bf16"]["bank_counts"], stages)
 
 
 def phase_unfused_paths(card, inputs):
@@ -908,7 +1194,13 @@ SASS_KERNELS = {
     "mlp_int8": (("IGMMA", "UTMALDG"), ("IMMA",)),  # every product on the int8 wgmma GEMM
     "flash_attention": (("HMMA",), ()),             # bf16 flash on the tensor cores (mma.sync)
 }
-SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "UTMASTG")
+SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "UTMASTG", "CALL")
+# (library, kernel): the most subroutine calls the kernel's SASS may hold.
+# ln_quant_rows divides only per row: the LN's two means, the row's scale
+# and its correctly rounded reciprocal, each with a slow path ptxas may
+# call; a division per element would add one for each of a lane's 32
+# elements (the loops are unrolled)
+SASS_CALL_LIMITS = {("ln_quant", "ln_quant_rows"): 4}
 
 
 def check_sass(build):
@@ -917,6 +1209,15 @@ def check_sass(build):
     mma.sync int8 product (IMMA) left in the int8 blocks, and mma.sync (HMMA)
     in bf16 flash_attention; count each in the library's SASS (cuobjdump)."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    for (k, fn), limit in SASS_CALL_LIMITS.items():
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(build._lib_path(k))],
+                              capture_output=True, text=True, timeout=120, check=True).stdout
+        funcs = {part.split("\n", 1)[0].strip(): part for part in sass.split("Function : ")[1:]}
+        calls = [len(re.findall(r"\bCALL\b", f)) for name, f in funcs.items() if fn in name]
+        log(f"[device] SASS {k}: CALLs in each instance of {fn} {calls} (at most {limit}: no "
+            "division slow path per element)")
+        if not calls or max(calls) > limit:
+            raise AssertionError(f"{k}: {fn} missing from its SASS, or a division per element")
     for k, (need, banned) in SASS_KERNELS.items():
         sass = subprocess.run([cuobjdump, "--dump-sass", str(build._lib_path(k))],
                               capture_output=True, text=True, timeout=120, check=True).stdout
@@ -1015,8 +1316,12 @@ def main() -> int:
     kern_attn = phase_kernels_attention(fa, gen)
     launch_ms = phase_launch_times(card)
     inputs = main_inputs()
-    total, bank_counts, score_counts = phase_main_paths(card, inputs)
+    total, bank_counts, score_counts, _ = phase_main_paths(card, inputs)
     total_attn, fp32_bank_counts, counts_a, counts_b = phase_unfused_paths(card, inputs)
+    torch.cuda.empty_cache()
+    total_rn, rn_bank_counts, _ = phase_rn50(card, inputs)
+    for k, n in total_rn.items():
+        total[k] = total.get(k, 0) + n
 
     line = {"kernels": []}
     for k, (src, replaces, prec) in KERNEL_SOURCES.items():
@@ -1031,8 +1336,12 @@ def main() -> int:
             "text_shape": "caption bank [256, 77, 512] causal",
             "text": {key: text[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                 "bound_by")},
-            "path": f"TEST.PREC {prec}",
+            "path": f"TEST.PREC {prec}" + (" (ViT-B/16); RN50 TEST.PREC auto, its caption bank"
+                                           if prec == "bf16" else ""),
             "launches_bank": bank_counts[prec][k], "launches_scoring": score_counts[prec][k],
+            **({"launches_rn50_bank": rn_bank_counts[k]} if prec == "bf16" else {}),
+            **({"device_ms": vit["device_ms"], "text_device_ms": text["device_ms"]}
+               if "device_ms" in vit else {}),
             **({"launch_ms": launch_ms[k]} if k in launch_ms else {}),
         })
     for k, (src, replaces, path, headers) in ATTN_SOURCES.items():

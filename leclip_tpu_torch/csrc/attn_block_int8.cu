@@ -2,9 +2,9 @@
 //   out = x + OutProj(MHA(int8 QKV(LN(x))))
 //
 // Replaces the TPU kernel leclip_tpu/ops/quant_kernels.py attn_block_int8
-// (_attn_block_kernel). The rows arrive already normalised and quantized
-// (xi int8 [R, D], xs fp32 [R]: the ln_quant kernel, launched by the Python
-// wrapper just before). Three launches here:
+// (_attn_block_kernel). Four launches:
+//   0. ln_quant_rows (quant.cuh): xi int8 [R, D], xs fp32 [R] = quantize(LN(x)),
+//      into the att buffer, which launch 2 overwrites once launch 1 has read them
 //   1. hopper_gemm_s8<IEPI_BIAS> (gemm_int8.cuh): bf16(acc * (xs * s_col) + b) -> bf16 qkv [R, 3D]
 //   2. attn_core (attn_core.cuh): per (sequence, head) softmax attention -> bf16 [R, D]
 //   3. hopper_gemm<RESID_PLUS_ACC> (gemm_sm90.cuh): bf16((x + att @ W_out) + b)
@@ -36,23 +36,29 @@ size_t leclip_attn_core_smem(int t, int dh) {
   return leclip::attn_smem((t + 31) / 32 * 32, dh);
 }
 
-// x, out: [b*t, d] bf16; xi [b*t, d] int8 and xs [b*t] fp32 from ln_quant;
-// qkv_wt: the int8 QKV weight as [3d, d] (K contiguous); qkv_s [3d] fp32;
-// qkv_b [3d], out_w [d, d] ([in, out]), out_b [d] bf16; qkv scratch
-// [b*t, 3d], att scratch [b*t, d] bf16; contiguous, on the card.
-// d % 128 == 0, d <= 1024, d / n_heads in {32, 64, 128}. Three launches on
-// `stream`; returns the first cudaError_t that is not cudaSuccess.
-int leclip_attn_block_int8(const void* x, const void* xi, const void* xs, const void* qkv_wt,
+// x, out: [b*t, d] bf16; ln_s / ln_b [d] bf16; qkv_wt: the int8 QKV weight
+// as [3d, d] (K contiguous); qkv_s [3d] fp32; qkv_b [3d], out_w [d, d] ([in,
+// out]), out_b [d] bf16; qkv scratch [b*t, 3d], att scratch [b*t, d] bf16
+// (it also holds the LN rows' codes and scales, (d + 4) bytes a row, until
+// the attention core overwrites it); contiguous, on the card. d % 128 == 0,
+// d <= 1024, d / n_heads in {32, 64, 128}. Four launches on `stream`;
+// returns the first cudaError_t that is not cudaSuccess.
+int leclip_attn_block_int8(const void* x, const void* ln_s, const void* ln_b, const void* qkv_wt,
                            const void* qkv_s, const void* qkv_b, const void* out_w,
                            const void* out_b, void* qkv, void* att, void* out, int b, int t,
-                           int d, int n_heads, int kv_len, int causal, void* stream) {
+                           int d, int n_heads, int kv_len, int causal, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = b * t;
   bf16* qkv_b16 = static_cast<bf16*>(qkv);
   bf16* att_b16 = static_cast<bf16*>(att);
-  cudaError_t err = leclip::launch_int8_gemm<leclip::IEPI_BIAS>(
-      static_cast<const int8_t*>(xi), static_cast<const int8_t*>(qkv_wt),
-      static_cast<const float*>(xs), nullptr, static_cast<const float*>(qkv_s),
+  int8_t* xi = static_cast<int8_t*>(att);
+  float* xs = reinterpret_cast<float*>(xi + (size_t)rows * d);
+  cudaError_t err = leclip::launch_ln_quant(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(ln_s), static_cast<const bf16*>(ln_b),
+      xi, xs, rows, d, eps, s);
+  if (err != cudaSuccess) return (int)err;
+  err = leclip::launch_int8_gemm<leclip::IEPI_BIAS>(
+      xi, static_cast<const int8_t*>(qkv_wt), xs, nullptr, static_cast<const float*>(qkv_s),
       static_cast<const bf16*>(qkv_b), nullptr, qkv_b16, rows, d, 3 * d, s);
   if (err != cudaSuccess) return (int)err;
   err = leclip::launch_attn_any(qkv_b16, att_b16, b, t, d, n_heads, kv_len, causal, s);

@@ -1,7 +1,7 @@
 // The LayerNorm row pass shared by the bf16 and int8 blocks, for sm_90a.
 //
-// ln_row holds one row of x (D <= 1024: at most 4 chunks of 8 per lane) in a
-// warp's registers and leaves LN(x) in fp32 there, with the TPU kernels'
+// ln_row holds one row of x (D <= 256 * NCH: at most NCH chunks of 8 per lane,
+// NCH <= 4) in a warp's registers and leaves LN(x) in fp32 there, with the TPU kernels'
 // statistics: the mean, then the mean of the centred squares, rsqrt(v + eps),
 // and the affine as ((x - mean) * rstd) * scale + bias. Each step is rounded
 // on its own (__fmul_rn / __fadd_rn): nvcc would otherwise contract the
@@ -17,12 +17,13 @@
 
 namespace leclip {
 
+template <int NCH>
 __device__ __forceinline__ void ln_row(const bf16* __restrict__ src, const bf16* __restrict__ ln_s,
                                        const bf16* __restrict__ ln_b, int d, float eps, int lane,
-                                       float (&v)[4][8]) {
+                                       float (&v)[NCH][8]) {
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < NCH; ++i) {
     const int c = (lane + 32 * i) * 8;
     if (c < d) {
       const uint4 u = *reinterpret_cast<const uint4*>(src + c);
@@ -37,7 +38,7 @@ __device__ __forceinline__ void ln_row(const bf16* __restrict__ src, const bf16*
   const float mean = warp_sum(s) / d;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < NCH; ++i) {
     if ((lane + 32 * i) * 8 < d) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -48,7 +49,7 @@ __device__ __forceinline__ void ln_row(const bf16* __restrict__ src, const bf16*
   }
   const float rstd = rsqrtf(warp_sum(q) / d + eps);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < NCH; ++i) {
     const int c = (lane + 32 * i) * 8;
     if (c < d) {
       const uint4 su = *reinterpret_cast<const uint4*>(ln_s + c);

@@ -2,13 +2,14 @@
 //   out = x + int8 proj(requantize(QuickGELU(int8 fc(LN(x)))))
 //
 // Replaces the TPU kernel leclip_tpu/ops/quant_kernels.py mlp_int8
-// (_mlp_int8_kernel). The rows arrive already normalised and quantized
-// (xi int8 [R, D], xs fp32 [R]: the ln_quant kernel, launched by the Python
-// wrapper just before). The TPU kernel keeps the fp32 hidden of a group of
-// sequences in VMEM, takes each hidden row's absmax over its whole width
+// (_mlp_int8_kernel). Its first launch normalises and quantizes the rows
+// (quant.cuh ln_quant_rows: xi int8 [R, D], xs fp32 [R]) into the first
+// bytes of the output buffer, which only the last launch writes. The TPU
+// kernel keeps the fp32 hidden of a group of sequences in VMEM, takes each hidden row's absmax over its whole width
 // H = 4D and requantizes it; 3072 fp32 per row do not fit on chip beside a
 // useful tile here. Instead the fc product runs twice (integer sums are
 // exact, so both passes see bit-identical h):
+//   0. ln_quant_rows: xi, xs = quantize(LN(x))
 //   1. hopper_gemm_s8<IEPI_GELU_ABSMAX>: h = QuickGELU(acc * (xs * s_col) + b)
 //      in fp32, reduced to row_absmax[r] = max_n |h| (a quad shuffle, then
 //      one global atomicMax on the float bits per row and column tile;
@@ -26,7 +27,7 @@
 // (gemm_int8.cuh: m64n256k32 .s8, one persistent warp-specialised block per
 // SM). The two fc passes are also bound by their CUDA-core epilogue
 // (rescale, QuickGELU with a full-precision expf and a correctly rounded
-// reciprocal, the quantizer's true division: ~25-40 instructions per hidden
+// reciprocal, the quantizer's exact code: ~25-40 instructions per hidden
 // element, about as long on the CUDA cores as the element's 2*D = 1,536
 // int8 operations take on the tensor cores at D = 768); each consumer
 // warpgroup runs its own epilogue while the other issues products. A
@@ -87,9 +88,9 @@ __global__ void exact_forms_check(uint64_t seed, long long n_pairs,
 
 extern "C" {
 
-// The exactness check of the int8 epilogue's division-free forms (see
-// gemm_int8.cuh): bad [2] uint64 on the card, zeroed here; one launch on
-// `stream`. Both counts must come back 0.
+// The exactness check of the division-free forms that the int8 epilogue and
+// the ln_quant row pass use (quant.cuh): bad [2] uint64 on the card, zeroed
+// here; one launch on `stream`. Both counts must come back 0.
 int leclip_int8_exact_forms_check(unsigned long long seed, long long n_pairs, void* bad,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -100,24 +101,30 @@ int leclip_int8_exact_forms_check(unsigned long long seed, long long n_pairs, vo
   return (int)cudaGetLastError();
 }
 
-// x, out: [rows, d] bf16; xi [rows, d] int8 and xs [rows] fp32 from
-// ln_quant; fc_wt [hidden, d] and pj_wt [d, hidden] int8 (K contiguous);
-// fc_s [hidden], pj_s [d] fp32; fc_b [hidden], pj_b [d] bf16; scratch
-// row_absmax [rows] fp32 and hi [rows, hidden] int8; contiguous, on the card.
-// d % 128 == 0, hidden % 128 == 0. A memset and three launches on `stream`;
-// returns the first cudaError_t that is not cudaSuccess.
-int leclip_mlp_int8(const void* x, const void* xi, const void* xs, const void* fc_wt,
+// x, out: [rows, d] bf16; ln_s / ln_b [d] bf16; fc_wt [hidden, d] and
+// pj_wt [d, hidden] int8 (K contiguous); fc_s [hidden], pj_s [d] fp32; fc_b
+// [hidden], pj_b [d] bf16; scratch row_absmax [rows] fp32 and hi [rows,
+// hidden] int8; contiguous, on the card. d % 128 == 0, d <= 1024, hidden %
+// 128 == 0. out doubles as the scratch of the LN rows' codes and scales
+// (rows * (d + 4) bytes of its 2 * rows * d), read by the fc passes before
+// the proj pass writes out. A memset and four launches on `stream`; returns
+// the first cudaError_t that is not cudaSuccess.
+int leclip_mlp_int8(const void* x, const void* ln_s, const void* ln_b, const void* fc_wt,
                     const void* fc_s, const void* fc_b, const void* pj_wt, const void* pj_s,
                     const void* pj_b, void* row_absmax, void* hi, void* out, int rows, int d,
-                    int hidden, void* stream) {
+                    int hidden, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* xi8 = static_cast<const int8_t*>(xi);
+  int8_t* xi8 = static_cast<int8_t*>(out);
+  float* xs32 = reinterpret_cast<float*>(xi8 + (size_t)rows * d);
   const int8_t* fc8 = static_cast<const int8_t*>(fc_wt);
-  const float* xs32 = static_cast<const float*>(xs);
   const float* fcs = static_cast<const float*>(fc_s);
   const bf16* fcb = static_cast<const bf16*>(fc_b);
   float* amax = static_cast<float*>(row_absmax);
-  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(float) * (size_t)rows, s);
+  cudaError_t err = leclip::launch_ln_quant(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(ln_s), static_cast<const bf16*>(ln_b),
+      xi8, xs32, rows, d, eps, s);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(amax, 0, sizeof(float) * (size_t)rows, s);
   if (err != cudaSuccess) return (int)err;
   err = leclip::launch_int8_gemm<leclip::IEPI_GELU_ABSMAX>(
       xi8, fc8, xs32, amax, fcs, fcb, nullptr, nullptr, rows, d, hidden, s);

@@ -251,46 +251,57 @@ class TTAEngine:
             ])
         return clip_normalize(crops)
 
-    def dispatch_staged_fused(self, staged: Staged) -> torch.Tensor:
-        """Score a staged batch → on-device fused [B, C] (not synchronised)."""
+    def _features(self, flat: torch.Tensor):
+        """The image tower once for every member, under the first member's
+        flags (its attention_impl), as the JAX engine does."""
+        flags = next(iter(self.models.values())).flags
+        return encode_image_features(self.clip_params, self.clip_cfg, flat, flags,
+                                     q8=self._q8, fused=self._fused)
+
+    def _retrieve(self, feats):
+        """(augmented global features, top-k scores): one exact search of
+        the caption bank for every member."""
+        if self.caption_bank is not None:
+            return retrieval_augment(feats.global_feat, self.caption_bank, self.topk)
+        n = feats.global_feat.shape[0]
+        return feats.global_feat, torch.zeros((n, self.topk), device=self.device)
+
+    def _score(self, feats, aug, scores, b: int, n: int) -> torch.Tensor:
+        """Every member's global/local logits, fuse/fuse6 block fusion and
+        the per-class routing → fused [B, C]."""
         groups = self._model_groups()
         base, routing = self._routing
-        b, n = staged.batch, staged.n_boxes
         coef = 1.5
+        sims_blocks = scores.reshape(b, n, -1)[:, 1:]
+        results = []
+        for names, flags, g_use_freq, tr, tf in groups:
+            out = test_logits_from_features(tr, tf, feats, flags,
+                                            precomputed_retrieval=(aug, scores))
+            m = len(names)
+            g = out.logits_global.reshape(m, b, n, -1)
+            loc = out.logits_local.reshape(m, b, n, -1)
+            if g_use_freq:
+                loc = adjust_predictions(loc, self.cooccurrence)
+            for mi, name in enumerate(names):
+                use6 = name == base
+                f = fuse6 if use6 else fuse
+                aux_coef = 1.5 if use6 else 1.0
+                o = g[mi, :, 0] + coef * f(g[mi, :, 1:], sims_blocks)
+                a = loc[mi, :, 0] + coef * f(loc[mi, :, 1:], sims_blocks)
+                results.append(o + aux_coef * a)
+        stack = torch.stack(results)                              # [M, B, C]
+        c = stack.shape[-1]
+        return stack.permute(1, 2, 0).gather(2, routing[None, :, None].expand(b, c, 1))[..., 0]
+
+    def dispatch_staged_fused(self, staged: Staged) -> torch.Tensor:
+        """Score a staged batch → on-device fused [B, C] (not synchronised):
+        crops → image tower → retrieval → members, fusion and routing."""
+        self._model_groups()
         with torch.inference_mode():
             crops = self._crops(staged)
-            flat = crops.reshape((-1,) + crops.shape[2:])
-            # the image tower runs once for every member, under the first
-            # member's flags (its attention_impl), as the JAX engine does
-            flags = next(iter(self.models.values())).flags
-            feats = encode_image_features(self.clip_params, self.clip_cfg, flat, flags,
-                                          q8=self._q8, fused=self._fused)
-            if self.caption_bank is not None:
-                aug, scores = retrieval_augment(feats.global_feat, self.caption_bank, self.topk)
-            else:
-                aug = feats.global_feat
-                scores = torch.zeros((flat.shape[0], self.topk), device=self.device)
-            sims_blocks = scores.reshape(b, n, -1)[:, 1:]
-            results = []
-            for names, flags, g_use_freq, tr, tf in groups:
-                out = test_logits_from_features(tr, tf, feats, flags,
-                                                precomputed_retrieval=(aug, scores))
-                m = len(names)
-                g = out.logits_global.reshape(m, b, n, -1)
-                loc = out.logits_local.reshape(m, b, n, -1)
-                if g_use_freq:
-                    loc = adjust_predictions(loc, self.cooccurrence)
-                for mi, name in enumerate(names):
-                    use6 = name == base
-                    f = fuse6 if use6 else fuse
-                    aux_coef = 1.5 if use6 else 1.0
-                    o = g[mi, :, 0] + coef * f(g[mi, :, 1:], sims_blocks)
-                    a = loc[mi, :, 0] + coef * f(loc[mi, :, 1:], sims_blocks)
-                    results.append(o + aux_coef * a)
-            stack = torch.stack(results)                              # [M, B, C]
-            c = stack.shape[-1]
-            return stack.permute(1, 2, 0).gather(
-                2, routing[None, :, None].expand(b, c, 1))[..., 0]
+            feats = self._features(crops.reshape((-1,) + crops.shape[2:]))
+            aug, scores = self._retrieve(feats)
+            return self._score(feats, aug, scores, staged.batch, staged.n_boxes)
 
     def dispatch_batch_fused(self, images: Sequence[np.ndarray]) -> torch.Tensor:
         return self.dispatch_staged_fused(self.stage_batch_fused(images))

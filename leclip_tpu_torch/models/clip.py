@@ -14,11 +14,9 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ..device import resolve_device
+from .resnet import encode_image_resnet, init_resnet_params
 from .text import init_text_params
 from .vit import encode_image_vit, init_vit_params
-
-RN_SLICE = ("ResNet image towers are not ported yet; they are the next slice "
-            "of the port (ROADMAP.md queue 1: models/resnet.py + the RN50 main path)")
 
 
 @dataclass(frozen=True)
@@ -99,12 +97,16 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig,
     the JAX package's for the same seed; tests move one pytree across with
     models/convert.py instead."""
     device = resolve_device(device)
-    if not cfg.is_vit:
-        raise NotImplementedError(RN_SLICE)
-    visual = init_vit_params(
-        generator, cfg.image_resolution, cfg.vision_patch_size, cfg.vision_width,
-        cfg.vision_layers, cfg.embed_dim, dtype, device,
-    )
+    if cfg.is_vit:
+        visual = init_vit_params(
+            generator, cfg.image_resolution, cfg.vision_patch_size, cfg.vision_width,
+            cfg.vision_layers, cfg.embed_dim, dtype, device,
+        )
+    else:
+        visual = init_resnet_params(
+            generator, cfg.vision_layers, cfg.embed_dim, cfg.image_resolution,
+            cfg.vision_width, dtype, device,
+        )
     return {
         "visual": visual,
         "text": init_text_params(
@@ -116,16 +118,21 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig,
 
 
 def clip_encode_image(params: dict, cfg: CLIPConfig, images: torch.Tensor,
-                      dense: bool = False, impl: str = "auto", q8: dict = None,
-                      fused: bool = False):
+                      dense: bool = False, if_pos: bool = True, impl: str = "auto",
+                      q8: dict = None, fused: bool = False, pool_map: bool = True):
     """Images [B, H, W, 3] (normalised) → global [B, E]; with ``dense`` also
-    the per-position embeddings. ``impl`` routes the unfused attention
-    (ops/attention.py); ``q8``: stacked int8 block weights of the image
-    tower (ops/quant.py), the W8A8 path; ``fused``: bf16 block kernels."""
-    if not cfg.is_vit:
-        raise NotImplementedError(RN_SLICE)
-    return encode_image_vit(images, params["visual"], cfg.vision_heads,
-                            cfg.vision_patch_size, dense=dense, impl=impl, q8=q8, fused=fused)
+    the per-position embeddings (ViT), or the pool map (None under
+    ``pool_map=False``) and the trunk map (ResNet). ``impl`` routes the
+    unfused ViT attention (ops/attention.py); ``q8``: stacked int8 block
+    weights of the ViT tower (ops/quant.py), the W8A8 path; ``fused``: bf16
+    block kernels (ViT). ``if_pos`` and ``pool_map`` are the ResNet pool's
+    (models/resnet.py)."""
+    if cfg.is_vit:
+        return encode_image_vit(images, params["visual"], cfg.vision_heads,
+                                cfg.vision_patch_size, dense=dense, impl=impl, q8=q8,
+                                fused=fused)
+    return encode_image_resnet(images, params["visual"], cfg.vision_heads, dense=dense,
+                               if_pos=if_pos, pool_map=pool_map)
 
 
 def config_from_state_dict(sd: dict) -> CLIPConfig:

@@ -3,12 +3,17 @@
 * ``from_jax_params`` / ``to_jax_params`` move a ``leclip_tpu`` parameter
   pytree (numpy leaves, as ``jax.device_get`` returns them) into the port's
   nested dict of tensors and back, value for value: the port keeps the JAX
-  layouts ([in, out] kernels, stacked blocks), so nothing is transposed.
-  Tuples are kept, so the int8 tree of ``quantize_block_stack`` ((int8,
-  fp32 scale) leaves) crosses too; ``from_jax_q8`` also puts its int8 weights
-  into the kernel layout of ops/quant.py.
+  layouts ([in, out] kernels, stacked blocks), so nothing is transposed but
+  the ResNet's conv kernels (leaves under ``conv``, ``conv1``..``conv3``):
+  JAX's HWIO becomes ``F.conv2d``'s [out, in, kh, kw] with channels-last
+  strides on the way in (models/resnet.py ``from_hwio``), and HWIO again on
+  the way back. Tuples are kept, so the int8 tree of
+  ``quantize_block_stack`` ((int8, fp32 scale) leaves) crosses too;
+  ``from_jax_q8`` also puts its int8 weights into the kernel layout of
+  ops/quant.py.
 * ``load_torch_state_dict`` / ``convert_state_dict`` / ``load_clip_weights``
-  read OpenAI CLIP checkpoints (ViT image tower and text tower).
+  read OpenAI CLIP checkpoints (ViT or ResNet image tower, and the text
+  tower).
 * ``load_prompt_checkpoint`` reads reference ``model.pth.tar`` prompt files.
 """
 
@@ -19,7 +24,15 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .clip import RN_SLICE, CLIPConfig, config_from_state_dict
+from .clip import CLIPConfig, config_from_state_dict
+from .resnet import from_hwio, to_hwio
+
+# keys whose 4-D leaves (5-D when stacked) are ResNet conv kernels
+_CONV_KEYS = ("conv", "conv1", "conv2", "conv3")
+
+
+def _is_conv(key, ndim: int) -> bool:
+    return key in _CONV_KEYS and ndim in (4, 5)
 
 
 def _leaf_to_torch(x, device) -> torch.Tensor:
@@ -30,13 +43,14 @@ def _leaf_to_torch(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def from_jax_params(tree, device="cpu"):
+def from_jax_params(tree, device="cpu", _key=None):
     """JAX param pytree (nested dicts / tuples of numpy arrays) → port params."""
     if isinstance(tree, dict):
-        return {k: from_jax_params(v, device) for k, v in tree.items()}
+        return {k: from_jax_params(v, device, k) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return tuple(from_jax_params(v, device) for v in tree)
-    return _leaf_to_torch(tree, device)
+    t = _leaf_to_torch(tree, device)
+    return from_hwio(t) if _is_conv(_key, t.dim()) else t
 
 
 def from_jax_q8(tree, device="cpu"):
@@ -50,15 +64,17 @@ def from_jax_q8(tree, device="cpu"):
                     from_jax_params(tree, device))
 
 
-def to_jax_params(params, bf16_dtype=None):
+def to_jax_params(params, bf16_dtype=None, _key=None):
     """Port params → nested dicts of numpy arrays (the inverse bridge).
     bfloat16 leaves come back as ``bf16_dtype`` (e.g. ml_dtypes.bfloat16,
     same bits) when given, else as exact float32."""
     if isinstance(params, dict):
-        return {k: to_jax_params(v, bf16_dtype) for k, v in params.items()}
+        return {k: to_jax_params(v, bf16_dtype, k) for k, v in params.items()}
     if isinstance(params, (tuple, list)):
         return tuple(to_jax_params(v, bf16_dtype) for v in params)
     t = params.detach().cpu()
+    if _is_conv(_key, t.dim()):
+        t = to_hwio(t)
     if t.dtype == torch.bfloat16:
         if bf16_dtype is None:
             return t.float().numpy()
@@ -118,6 +134,53 @@ def _block_stack(sd, prefix: str, layers: int) -> dict:
     }
 
 
+def _convert_resnet(sd, layers) -> dict:
+    """The ModifiedResNet tower in the JAX package's tree (HWIO convs, BN
+    {scale, bias, mean, var}, bottlenecks after the first of a stage
+    stacked); ``from_jax_params`` then puts the convs in the port's layout."""
+
+    def conv(key):
+        return sd[key].transpose(2, 3, 1, 0)  # OIHW → HWIO
+
+    def bn(prefix):
+        return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"],
+                "mean": sd[f"{prefix}.running_mean"], "var": sd[f"{prefix}.running_var"]}
+
+    def linear(prefix):
+        return {"kernel": sd[f"{prefix}.weight"].T, "bias": sd[f"{prefix}.bias"]}
+
+    def bottleneck(prefix):
+        blk = {"conv1": conv(f"{prefix}.conv1.weight"), "bn1": bn(f"{prefix}.bn1"),
+               "conv2": conv(f"{prefix}.conv2.weight"), "bn2": bn(f"{prefix}.bn2"),
+               "conv3": conv(f"{prefix}.conv3.weight"), "bn3": bn(f"{prefix}.bn3")}
+        if f"{prefix}.downsample.0.weight" in sd:
+            blk["downsample"] = {"conv": conv(f"{prefix}.downsample.0.weight"),
+                                 "bn": bn(f"{prefix}.downsample.1")}
+        return blk
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    p = {}
+    for i in (1, 2, 3):
+        p[f"conv{i}"] = conv(f"visual.conv{i}.weight")
+        p[f"bn{i}"] = bn(f"visual.bn{i}")
+    for li, n_blocks in zip((1, 2, 3, 4), layers):
+        stage = {"block0": bottleneck(f"visual.layer{li}.0")}
+        if n_blocks > 1:
+            stage["rest"] = stack([bottleneck(f"visual.layer{li}.{b}")
+                                   for b in range(1, n_blocks)])
+        p[f"layer{li}"] = stage
+    p["attnpool"] = {
+        "positional_embedding": sd["visual.attnpool.positional_embedding"],
+        **{name: linear(f"visual.attnpool.{name}")
+           for name in ("q_proj", "k_proj", "v_proj", "c_proj")},
+    }
+    return p
+
+
 def _convert_vit(sd, n_layers: int) -> dict:
     conv_w = sd["visual.conv1.weight"]  # [width, 3, p, p] → rows in (p, p, c) order
     return {
@@ -135,10 +198,9 @@ def convert_state_dict(sd: Dict[str, np.ndarray], device="cpu") -> Tuple[CLIPCon
     """OpenAI-layout state dict (numpy) → (config, port params)."""
     sd = {k: np.asarray(v, np.float32) for k, v in sd.items()}
     cfg = config_from_state_dict(sd)
-    if not cfg.is_vit:
-        raise NotImplementedError(RN_SLICE)
     tree = {
-        "visual": _convert_vit(sd, cfg.vision_layers),
+        "visual": (_convert_vit(sd, cfg.vision_layers) if cfg.is_vit
+                   else _convert_resnet(sd, cfg.vision_layers)),
         "text": {
             "token_embedding": sd["token_embedding.weight"],
             "positional_embedding": sd["positional_embedding"],

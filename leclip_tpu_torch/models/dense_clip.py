@@ -17,6 +17,7 @@ import torch
 from ..ops.attention import _mm32
 from .clip import CLIPConfig, clip_encode_image
 from .prompt import assemble_prompts
+from .resnet import project_dense
 from .text import encode_text_embeds
 
 NEG_MASK_VALUE = -10000.0
@@ -139,12 +140,19 @@ class ImageFeatures(NamedTuple):
 def encode_image_features(clip_params: dict, clip_cfg: CLIPConfig, images: torch.Tensor,
                           flags: DenseFlags, q8: dict = None,
                           fused: bool = False) -> ImageFeatures:
-    """Frozen image tower → normalised global + dense features (ViT).
-    ``q8``: int8 image-tower weights (ops/quant.py); ``flags.attention_impl``
-    routes the unfused attention."""
-    global_raw, tokens = clip_encode_image(clip_params, clip_cfg, images, dense=True,
-                                           impl=flags.attention_impl, q8=q8, fused=fused)
-    dense = tokens.reshape(tokens.shape[0], -1, tokens.shape[-1])
+    """Frozen image tower → normalised global + dense features. ViT: the
+    projected patch tokens; ``q8``: int8 image-tower weights (ops/quant.py);
+    ``flags.attention_impl`` routes the unfused attention. ResNet: the trunk
+    map through the pool's v/c projections (``project_dense``), beside the
+    single-query pool's global feature, without the positional embedding."""
+    out = clip_encode_image(clip_params, clip_cfg, images, dense=True, if_pos=False,
+                            impl=flags.attention_impl, q8=q8, fused=fused, pool_map=False)
+    if clip_cfg.is_vit:
+        global_raw, tokens = out
+        dense = tokens.reshape(tokens.shape[0], -1, tokens.shape[-1])
+    else:
+        global_raw, _, feat_map = out
+        dense = project_dense(feat_map, clip_params["visual"]["attnpool"])
     return ImageFeatures(_normalize(global_raw), _normalize(dense))
 
 

@@ -46,11 +46,11 @@ KERNELS: Dict[str, tuple] = {
         "leclip_ln_quant": [_P] * 5 + [_I] * 2 + [_F, _P],
     }),
     "attn_block_int8": ("attn_block_int8.cu", {
-        "leclip_attn_block_int8": [_P] * 11 + [_I] * 6 + [_P],
+        "leclip_attn_block_int8": [_P] * 11 + [_I] * 6 + [_F, _P],
         "leclip_attn_core_smem": [_I, _I],
     }),
     "mlp_int8": ("mlp_int8.cu", {
-        "leclip_mlp_int8": [_P] * 12 + [_I] * 3 + [_P],
+        "leclip_mlp_int8": [_P] * 12 + [_I] * 3 + [_F, _P],
         "leclip_int8_exact_forms_check": [ctypes.c_ulonglong, _L, _P, _P],
     }),
     "resident_attention": ("resident_attention.cu", {

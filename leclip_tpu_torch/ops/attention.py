@@ -8,9 +8,11 @@ single attention entry point of every tower, with the JAX package's routes.
   (:func:`leclip_tpu_torch.ops.flash_attention.flash_attention`).
 
 ``impl="auto"`` follows the JAX rule with "on the TPU" read as "on a CUDA
-device" (:func:`attention_route`); on the CPU it is always ``xla``. The JAX
-package's ``attention_core`` (called alone only by the RN50 attention pool)
-comes with the RN50 port. Weights use the packed-QKV ``[in, out]`` layout of
+device" (:func:`attention_route`); on the CPU it is always ``xla``.
+:func:`attention_core` is the JAX package's attention over [B, H, T, Dh]
+heads (called alone only by the RN attention pool's full map): the plain
+math, or ``flash_attention`` under "pallas" (by itself at T ≥ 8192 on the
+card). Weights use the packed-QKV ``[in, out]`` layout of
 the JAX package: ``{qkv_kernel [D,3D], qkv_bias [3D], out_kernel [D,D],
 out_bias [D]}``.
 
@@ -64,6 +66,29 @@ def attention_route(impl: str, t: int, hd: int, has_mask: bool, device_type: str
     if on_card and not has_mask and t % 8 == 0 and t >= 128 and hd == 64:
         return "resident"
     return "pallas" if on_card and t >= _PALLAS_MIN_SEQ else "xla"
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   mask: Optional[torch.Tensor] = None, impl: str = "auto") -> torch.Tensor:
+    """Scaled dot-product attention over [B, H, T, Dh] with an optional
+    additive [T, T] mask. "pallas" runs the flash-attention kernel; "auto"
+    picks it on a CUDA device at T ≥ 8192 and else, like every other impl
+    (as in the JAX function), the plain math: fp32 logits of the scaled q,
+    stored in bf16 for bf16 inputs, an fp32 softmax, probabilities cast to
+    v's dtype before the second product."""
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "auto":
+        on_card = q.device.type == "cuda"
+        impl = "pallas" if on_card and q.shape[-2] >= _PALLAS_MIN_SEQ else "xla"
+    if impl == "pallas":
+        return flash_attention(q, k, v, mask=mask)
+    store = q.dtype if q.dtype == torch.bfloat16 else torch.float32
+    logits = _mm32(q * q.shape[-1] ** -0.5, k.transpose(-1, -2))
+    if mask is not None:
+        logits = logits + mask.float()
+    probs = torch.softmax(logits.to(store).float(), dim=-1)
+    return _matmul(probs.to(v.dtype), v)
 
 
 def _attention_bthd(q, k, v, mask: Optional[torch.Tensor]) -> torch.Tensor:

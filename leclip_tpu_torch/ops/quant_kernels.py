@@ -16,19 +16,20 @@ their plain PyTorch versions (counterpart of leclip_tpu/ops/quant_kernels.py).
 
 Per-row quantization needs the absmax of a whole row before the first
 product, so the LN cannot ride a GEMM's tile loads as it does in the bf16
-kernels: ``ln_quant`` is the first launch of both blocks (their wrappers call
-it, so its launch count moves with theirs), and the int8 rows + one scale per
-row go through HBM, half the bytes of bf16. The MLP's requantization needs
-the absmax of the fp32 hidden row, 3072 wide at ViT-B/16: the fc product is
+kernels: the ``ln_quant`` kernel is the first launch of both blocks (their C
+entries launch it, into scratch the block's wrapper already allocates, and
+the block's wrapper counts it in ``ln_quant.launches``), and the int8 rows +
+one scale per row go through HBM, half the bytes of bf16. The MLP's
+requantization needs the absmax of the fp32 hidden row, 3072 wide at ViT-B/16: the fc product is
 run twice — once for the row absmax, once to quantize with the known scale —
 which is bit-identical to staging the fp32 hidden (integer sums are exact)
 and moves a quarter of the bytes. Every int8 product of both blocks runs on
 one GEMM, ``csrc/gemm_int8.cuh``: wgmma on the int8 tensor cores fed by TMA,
 with the rescale, QuickGELU, quantizer and residual in the accumulator
-registers in the TPU kernels' fp32 order; its epilogue uses branch-free
-forms of the divisions that give the same values, which
-``int8_exact_forms_check`` verifies on the card. What bounds each kernel on
-the H100 is in the note at the top of its source.
+registers in the TPU kernels' fp32 order; its epilogue and the ``ln_quant``
+row pass use branch-free forms of the divisions that give the same values
+(``csrc/quant.cuh``), which ``int8_exact_forms_check`` verifies on the card.
+What bounds each kernel on the H100 is in the note at the top of its source.
 
 Each wrapper takes the plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises; it never falls back. ``launches`` on
@@ -171,6 +172,9 @@ def attn_block_int8(x, ln_scale, ln_bias, qkv_wi8, qkv_s, qkv_b, out_w, out_b,
     if not 1 <= kv_len <= t:
         raise ValueError(f"attn_block_int8: kv_len {kv_len} outside [1, {t}]")
     dev = x.device
+    for name, ten, shape in (("x", x, x.shape), ("ln_scale", ln_scale, (d,)),
+                             ("ln_bias", ln_bias, (d,))):
+        _check(f"attn_block_int8 {name}", ten, shape, dev)
     _check_weight("attn_block_int8 qkv_wi8", qkv_wi8, (d, 3 * d), dev)
     _check("attn_block_int8 qkv_s", qkv_s, (3 * d,), dev, torch.float32)
     for name, ten, shape in (("qkv_b", qkv_b, (3 * d,)), ("out_w", out_w, (d, d)),
@@ -181,16 +185,17 @@ def attn_block_int8(x, ln_scale, ln_bias, qkv_wi8, qkv_s, qkv_b, out_w, out_b,
     if smem > 232448:
         raise ValueError(f"attn_block_int8: T={t} needs {smem} B of shared memory, "
                          "above the card's 227 KB")
-    xi, xs = ln_quant(x, ln_scale, ln_bias, eps)  # checks x and the LN affine
     qkv = torch.empty((b * t, 3 * d), dtype=x.dtype, device=dev)
-    att = torch.empty((b * t, d), dtype=x.dtype, device=dev)
+    att = torch.empty((b * t, d), dtype=x.dtype, device=dev)  # first holds the LN rows' codes
     out = torch.empty_like(x)
     rc = lib.leclip_attn_block_int8(
-        x.data_ptr(), xi.data_ptr(), xs.data_ptr(), qkv_wi8.data_ptr(), qkv_s.data_ptr(),
-        qkv_b.data_ptr(), out_w.data_ptr(), out_b.data_ptr(), qkv.data_ptr(), att.data_ptr(),
-        out.data_ptr(), b, t, d, n_heads, kv_len, int(bool(causal)), _stream(dev))
+        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), qkv_wi8.data_ptr(),
+        qkv_s.data_ptr(), qkv_b.data_ptr(), out_w.data_ptr(), out_b.data_ptr(), qkv.data_ptr(),
+        att.data_ptr(), out.data_ptr(), b, t, d, n_heads, kv_len, int(bool(causal)), float(eps),
+        _stream(dev))
     _raise_on(rc, "attn_block_int8")
     attn_block_int8.launches += 1
+    ln_quant.launches += 1  # the block's first launch is the ln_quant kernel
     return out
 
 
@@ -236,17 +241,21 @@ def _mlp_int8_cuda(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b,
     _check("mlp_int8 pj_s", pj_s, (d,), dev, torch.float32)
     _check("mlp_int8 fc_b", fc_b, (hidden,), dev)
     _check("mlp_int8 pj_b", pj_b, (d,), dev)
+    for name, ten, shape in (("x", x, x.shape), ("ln_scale", ln_scale, (d,)),
+                             ("ln_bias", ln_bias, (d,))):
+        _check(f"mlp_int8 {name}", ten, shape, dev)
     lib = _build.load("mlp_int8")
-    xi, xs = ln_quant(x, ln_scale, ln_bias, eps)  # checks x and the LN affine
     rowmax = torch.empty((rows,), dtype=torch.float32, device=dev)
     hi = torch.empty((rows, hidden), dtype=torch.int8, device=dev)
-    out = torch.empty_like(x)
+    out = torch.empty_like(x)  # first holds the LN rows' codes
     rc = lib.leclip_mlp_int8(
-        x.data_ptr(), xi.data_ptr(), xs.data_ptr(), fc_wi8.data_ptr(), fc_s.data_ptr(),
-        fc_b.data_ptr(), pj_wi8.data_ptr(), pj_s.data_ptr(), pj_b.data_ptr(),
-        rowmax.data_ptr(), hi.data_ptr(), out.data_ptr(), rows, d, hidden, _stream(dev))
+        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), fc_wi8.data_ptr(),
+        fc_s.data_ptr(), fc_b.data_ptr(), pj_wi8.data_ptr(), pj_s.data_ptr(), pj_b.data_ptr(),
+        rowmax.data_ptr(), hi.data_ptr(), out.data_ptr(), rows, d, hidden, float(eps),
+        _stream(dev))
     _raise_on(rc, "mlp_int8")
     mlp_int8.launches += 1
+    ln_quant.launches += 1  # the block's first launch is the ln_quant kernel
     return out, hi, rowmax
 
 

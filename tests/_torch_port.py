@@ -91,14 +91,15 @@ def block_stack(width, layers, seed, dtype="fp32", outlier=None):
     return blocks
 
 
-def tta_ensemble(dtype, cfg, classes, groups, attention_impl="auto"):
+def tta_ensemble(dtype, cfg, classes, groups, attention_impl="auto", jp=None):
     """Both sides' six-member ensembles (``groups``: (members, use_evidence,
-    use_freq, n_ctx)) from one JAX pytree of preset ``cfg`` and numpy prompts,
-    every member's flags carrying ``attention_impl``; plus a caption bank and
-    a co-occurrence matrix. Returns (jax params, port params, jax specs, port
-    specs, bank, cooc)."""
+    use_freq, n_ctx)) from one JAX pytree of preset ``cfg`` (``jp``, else a
+    seeded init) and numpy prompts, every member's flags carrying
+    ``attention_impl``; plus a caption bank and a co-occurrence matrix.
+    Returns (jax params, port params, jax specs, port specs, bank, cooc)."""
     jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
-    jp = jax.device_get(jclip.init_clip_params(jax.random.PRNGKey(0), cfg, dtype=jdt))
+    if jp is None:
+        jp = jax.device_get(jclip.init_clip_params(jax.random.PRNGKey(0), cfg, dtype=jdt))
     tp = to_port(jp)
     rng = np.random.default_rng(7)
     jspecs, tspecs, jconst, tconst = {}, {}, {}, {}
@@ -126,3 +127,107 @@ def tta_ensemble(dtype, cfg, classes, groups, attention_impl="auto"):
     cooc = rng.random((len(classes),) * 2).astype(np.float32)
     cooc /= cooc.sum(-1, keepdims=True)
     return jp, tp, jspecs, tspecs, bank, cooc
+
+
+def random_bn(tree, seed: int):
+    """A JAX ResNet tree with every batch norm's statistics and affine drawn
+    at random (the JAX init zeroes each bn3 scale, which would leave every
+    residual branch out of a comparison)."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        if isinstance(t, dict):
+            if set(t) == {"scale", "bias", "mean", "var"}:
+                shape = np.shape(t["scale"])
+                return {"scale": rng.uniform(0.5, 1.0, shape).astype(np.float32),
+                        "bias": rng.normal(0.0, 0.1, shape).astype(np.float32),
+                        "mean": rng.normal(0.0, 0.1, shape).astype(np.float32),
+                        "var": rng.uniform(0.5, 1.5, shape).astype(np.float32)}
+            return {k: walk(v) for k, v in t.items()}
+        return t
+
+    return walk(tree)
+
+
+def rn_visual_numpy(cfg, seed: int = 0):
+    """A JAX ResNet image tower of preset ``cfg`` filled from numpy (the JAX
+    init's shapes and scales: He-normal convs, normal pool projections of
+    std embed^-0.5, small random biases), with random BN; quick at RN50's
+    widths, where the JAX init takes many seconds on the CPU."""
+    from leclip_tpu.models.resnet import init_resnet_params
+
+    shapes = jax.eval_shape(lambda k: init_resnet_params(
+        k, cfg.vision_layers, cfg.embed_dim, cfg.image_resolution, cfg.vision_width),
+        jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+    embed = cfg.vision_width * 32
+
+    def fill(key, s):
+        if key.startswith("conv"):
+            fan_in = int(np.prod(s.shape[-4:-1]))
+            return (rng.standard_normal(s.shape) * (2.0 / fan_in) ** 0.5).astype(np.float32)
+        if key in ("kernel", "positional_embedding"):
+            return (rng.standard_normal(s.shape) * embed ** -0.5).astype(np.float32)
+        return (0.02 * rng.standard_normal(s.shape)).astype(np.float32)
+
+    def walk(t, key=""):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        return fill(key, t)
+
+    return random_bn(walk(shapes), seed)
+
+
+def rn_clip_params(cfg, seed: int = 0):
+    """JAX CLIP params (numpy leaves) of ResNet preset ``cfg``: the seeded
+    JAX init's text tower, :func:`rn_visual_numpy`'s image tower."""
+    params = jax.device_get(jclip.init_clip_params(jax.random.PRNGKey(seed), cfg))
+    params["visual"] = rn_visual_numpy(cfg, seed)
+    return params
+
+
+def openai_rn_state_dict(params):
+    """A JAX ResNet CLIP pytree (numpy leaves) → an OpenAI-layout state dict."""
+    v, t = params["visual"], params["text"]
+    sd = {}
+
+    def conv(key, w):
+        sd[key] = np.asarray(w).transpose(3, 2, 0, 1)  # HWIO → OIHW
+
+    def bn(prefix, p):
+        for ours, theirs in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+                             ("var", "running_var")):
+            sd[f"{prefix}.{theirs}"] = p[ours]
+
+    def block(prefix, p):
+        for i in (1, 2, 3):
+            conv(f"{prefix}.conv{i}.weight", p[f"conv{i}"])
+            bn(f"{prefix}.bn{i}", p[f"bn{i}"])
+        if "downsample" in p:
+            conv(f"{prefix}.downsample.0.weight", p["downsample"]["conv"])
+            bn(f"{prefix}.downsample.1", p["downsample"]["bn"])
+
+    for i in (1, 2, 3):
+        conv(f"visual.conv{i}.weight", v[f"conv{i}"])
+        bn(f"visual.bn{i}", v[f"bn{i}"])
+    for li in (1, 2, 3, 4):
+        stage = v[f"layer{li}"]
+        block(f"visual.layer{li}.0", stage["block0"])
+        if "rest" in stage:
+            n = stage["rest"]["conv1"].shape[0]
+            for b in range(n):
+                block(f"visual.layer{li}.{b + 1}", jax.tree.map(lambda a: a[b], stage["rest"]))
+    ap = v["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = ap["positional_embedding"]
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        sd[f"visual.attnpool.{name}.weight"] = np.asarray(ap[name]["kernel"]).T
+        sd[f"visual.attnpool.{name}.bias"] = ap[name]["bias"]
+    sd.update({
+        "token_embedding.weight": t["token_embedding"],
+        "positional_embedding": t["positional_embedding"],
+        "ln_final.weight": t["ln_final"]["scale"], "ln_final.bias": t["ln_final"]["bias"],
+        "text_projection": t["text_projection"],
+        "logit_scale": np.asarray(params["logit_scale"], np.float32),
+    })
+    _blocks_to_sd(t["blocks"], "transformer.resblocks", sd)
+    return {k: np.ascontiguousarray(np.asarray(a, np.float32)) for k, a in sd.items()}

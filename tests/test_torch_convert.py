@@ -83,9 +83,18 @@ def test_openai_state_dict_both_routes(tmp_path):
 
 
 def test_rn_towers_wait_for_their_slice():
-    with pytest.raises(NotImplementedError, match="ResNet"):
-        tclip.init_clip_params(torch.Generator().manual_seed(0), tclip.PRESETS["RN-TEST"],
-                               device="cpu")
+    """Their slice has come: a ResNet tower initialises, with JAX's tree, and
+    crosses the bridge both ways (tests/test_torch_resnet.py holds it value
+    for value against JAX's)."""
+    port = tclip.init_clip_params(torch.Generator().manual_seed(0), tclip.PRESETS["RN-TEST"],
+                                  device="cpu")
+    shapes = jax.eval_shape(lambda k: jclip.init_clip_params(k, jclip.PRESETS["RN-TEST"]),
+                            jax.random.PRNGKey(0))
+    back = tconvert.to_jax_params(port)
+    assert jax.tree.structure(back) == jax.tree.structure(shapes)
+    assert jax.tree.leaves(jax.tree.map(lambda a, s: a.shape == s.shape, back, shapes)) \
+        == [True] * len(jax.tree.leaves(shapes))
+    _assert_same_tree(back, tconvert.to_jax_params(tconvert.from_jax_params(back)))
 
 
 def test_load_prompt_checkpoint_matches_jax(tmp_path):

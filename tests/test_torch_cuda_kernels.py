@@ -150,7 +150,12 @@ def _close_int8(out, ref):
 
 
 @pytest.mark.parametrize("shape,d", [((610, 200), 768), ((9, 77), 512), ((13,), 128),
-                                     ((3, 100), 1024), ((1, 5), 640)])
+                                     ((3, 100), 1024), ((1, 5), 640),
+                                     # ragged row counts: one row, part of / one past
+                                     # a warp-per-row block of 8, many blocks
+                                     ((1,), 768), ((63,), 512), ((64,), 640),
+                                     ((129,), 1024), ((129,), 512), ((17000,), 768),
+                                     ((17000,), 1024)])
 def test_ln_quant_kernel_matches_plain(card, shape, d):
     rn, ln1, _, _ = _int8_layer(card, d, 3)
     x = rn(*shape, d)
@@ -183,7 +188,7 @@ def test_attn_block_int8_kernel_matches_plain(card, b, t, d, heads, kv_len, caus
     x = rn(b, t, d)
     before = qk.attn_block_int8.launches, qk.ln_quant.launches
     out = qk.attn_block_int8(x, *attn, heads, kv_len=kv_len, causal=causal)
-    # the block's first launch is the ln_quant kernel, through its wrapper
+    # the block's C entry launches the ln_quant kernel first, counted with it
     assert (qk.attn_block_int8.launches, qk.ln_quant.launches) == (before[0] + 1, before[1] + 1)
     _close_int8(out, qk.attn_block_int8_plain(x, *attn, heads, kv_len=kv_len, causal=causal))
 
@@ -197,9 +202,10 @@ def test_attn_block_int8_kernel_matches_plain(card, b, t, d, heads, kv_len, caus
 def test_mlp_int8_kernel_matches_plain(card, rows, d):
     rn, _, _, mlp = _int8_layer(card, d, 5)
     x = rn(rows, d)
-    before = qk.mlp_int8.launches
+    before = qk.mlp_int8.launches, qk.ln_quant.launches
     out = qk.mlp_int8(x, *mlp)
-    assert qk.mlp_int8.launches == before + 1
+    # one call: the block's C entry launches the ln_quant kernel first
+    assert (qk.mlp_int8.launches, qk.ln_quant.launches) == (before[0] + 1, before[1] + 1)
     _close_int8(out, qk.mlp_int8_plain(x, *mlp))
 
 
@@ -378,3 +384,51 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(card):
     x = _randn(card, (1, 2, 24, 32), torch.float32, 44)
     with pytest.raises(ValueError, match="head width 64"):
         fa.flash_attention(x, x, x)
+
+
+# --------------------------- the RN50 image tower ----------------------------
+
+
+def _random_bn(tree, g):
+    if isinstance(tree, dict):
+        if set(tree) == {"scale", "bias", "mean", "var"}:
+            c = tree["scale"].shape
+
+            def u(lo, hi):
+                return lo + (hi - lo) * torch.rand(c, generator=g)
+
+            return {"scale": u(0.5, 1.0), "bias": 0.1 * torch.randn(c, generator=g),
+                    "mean": 0.1 * torch.randn(c, generator=g), "var": u(0.5, 1.5)}
+        return {k: _random_bn(v, g) for k, v in tree.items()}
+    return tree
+
+
+def test_rn50_fp32_tower_on_card_matches_cpu(card):
+    """RN50's fp32 image tower (every batch norm random) on the card against
+    the same function on the CPU, with TF32 switched on by the caller: the
+    tower runs its cuDNN convolutions and products in full fp32 whatever the
+    caller's setting, so the two differ only in summation order (1e-4 of
+    the largest value through the 50 layers; TF32 would leave ~1e-3)."""
+    from leclip_tpu_torch.device import tree_map
+    from leclip_tpu_torch.models.clip import PRESETS
+    from leclip_tpu_torch.models.resnet import encode_image_resnet, init_resnet_params
+
+    cfg = PRESETS["RN50"]
+    g = torch.Generator().manual_seed(0)
+    vis = _random_bn(init_resnet_params(g, cfg.vision_layers, cfg.embed_dim,
+                                        cfg.image_resolution, cfg.vision_width, device="cpu"), g)
+    x = torch.randn(2, 224, 224, 3, generator=g)
+    ref = encode_image_resnet(x, vis, cfg.vision_heads, dense=True, pool_map=False)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        out = encode_image_resnet(x.to(card), tree_map(lambda t: t.to(card), vis),
+                                  cfg.vision_heads, dense=True, pool_map=False)
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert out[1] is None and ref[1] is None
+    for o, r in ((out[0], ref[0]), (out[2], ref[2])):
+        scale = r.abs().max().item()
+        assert torch.isfinite(o).all()
+        assert (o.cpu() - r).abs().max().item() <= 1e-4 * scale

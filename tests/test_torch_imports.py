@@ -69,10 +69,12 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     calls = [
         lambda: resolve_device(None),
         lambda: init_clip_params(torch.Generator().manual_seed(0), cfg),
+        lambda: init_clip_params(torch.Generator().manual_seed(0), PRESETS["RN-TEST"]),
         lambda: build_caption_bank(params, cfg, toks),
         lambda: TTAEngine(params, cfg, {}),
         lambda: make_engine(setup_config(), params, cfg, {}),
         lambda: eval_main(["--backbone", "ViT-TEST", "--model-dir", str(tmp_path)]),
+        lambda: eval_main(["--backbone", "RN-TEST", "--model-dir", str(tmp_path)]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -237,6 +237,12 @@ def test_build_hash_covers_every_included_header(tmp_path, monkeypatch):
                                                        "layernorm.cuh", "gemm.cuh"}
     assert {"attn_core.cuh", "gemm_sm90.cuh", "layernorm.cuh"} <= set(
         _build.source_files("attn_block_bf16.cu"))
+    # the quantizer's exact forms live in quant.cuh, which the ln_quant row
+    # pass shares with the int8 GEMM: ln_quant builds from it without the GEMM
+    assert set(_build.source_files("ln_quant.cu")) == {"ln_quant.cu", "quant.cuh",
+                                                       "layernorm.cuh", "gemm.cuh"}
+    assert "quant_code_rcp" in (csrc / "quant.cuh").read_text()
+    assert "quant_code_rcp(float" not in (csrc / "gemm_int8.cuh").read_text()
 
     def names():
         return {k: _build._lib_path(k).name for k in _build.KERNELS}
