@@ -13,7 +13,8 @@ Phases (any failure exits non-zero and prints no result line):
   2. kernels: each of the seven hand-written kernels (attn_block_bf16,
      mlp_bf16, ln_quant, attn_block_int8, mlp_int8, resident_attention,
      flash_attention) against its plain PyTorch version on the card at the
-     main paths' shapes (ViT-B/16 crops, caption-bank text; the attention
+     main paths' shapes (ViT-B/16 crops, caption-bank text, the trainer's
+     [1024, 77, 512] causal caption branch for the five block kernels; the attention
      kernels also at ViT-L/14's 264 tokens, in fp32 and bf16), with
      CUDA-event timings, a PyTorch-ops yardstick and the roofline bound (the
      attention kernels and their yardstick also by device time alone,
@@ -47,7 +48,27 @@ Phases (any failure exits non-zero and prints no result line):
      staged batches and run_full_inference → impreds.json, the image tower
      launching no hand-written kernel; then TEST.PREC fp32; bf16 held
      against fp32, the fp32 tower held to full fp32 with TF32 switched on
-     around it; and its bf16 batch split into stages as in phase 3.
+     around it; and its bf16 batch split into stages as in phase 3;
+  6. the caption-distillation trainer that all 19 recipes run, at RN50's
+     text width (12x512, seeded random fp32 weights) on 8,192 synthetic
+     captions with token-decided labels over the 80 COCO classes, the ema
+     recipe's settings (N_CTX 64, EMA teacher, SGD, constant warmup LR 1e-3,
+     batch 1024: 8 steps an epoch): CaptionDistillTrainer.train() for 2
+     epochs under TRAINER.PREC fp32, bf16 (caption branch on
+     attn_block_bf16 + mlp_bf16), TRAIN.int8_captions (ln_quant + the int8
+     blocks) and fp32 with use_evidence, each writing model.ckpt-1 — launch
+     counters show each run's own kernels at 12 a step and no other, every
+     loss is finite and the 16th step's is below the first's, the bf16 and
+     int8 runs' first-step caption features and prompt gradients are held
+     against fp32's (cosine >= 0.99), their caption features of 64 captions
+     against the CPU port's same route on the same weights (cosine >= 0.9995
+     bf16, 0.999 int8) and the int8 run's against the fp32 residual stream
+     of the JAX package's route (cosine >= 0.999), the fp32 step against itself with TF32
+     switched on around it (equal) and against float64 on the card (1e-4),
+     the checkpoint reads back bitwise, a trainer resumed from it takes the
+     uninterrupted run's next step exactly, and the checkpoint scores one
+     batch as an RN50 make_engine member; steps/s, captions/s, peak memory
+     and a per-step split by CUDA events are printed.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 
@@ -58,6 +79,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -173,6 +195,7 @@ def lib_mlp(x, s, b, fw, fb, pw, pb):
 SHAPES = {  # name: (batch, tokens, width, heads, kv_len, causal)
     "vit": (N_IMAGES * 305, 200, 768, 12, 197, False),
     "text": (256, 77, 512, 8, 77, True),
+    "train": (1024, 77, 512, 8, 77, True),  # the trainer's caption branch (phase 6)
 }
 
 
@@ -1250,6 +1273,371 @@ def phase_launch_times(card):
     return res
 
 
+# ------------------------------- training -----------------------------------
+
+# the ema recipe (configs/trainers/ema.yaml), cut to 2 epochs with every
+# caption in training (no probe holdout): 8,192 captions, 8 steps an epoch
+TRAIN_RECIPE = ["DATALOADER.BATCH_SIZE_TRAIN", "1024", "OPTIM.NAME", "sgd", "OPTIM.LR", "0.01",
+                "OPTIM.MAX_EPOCH", "2", "OPTIM.WARMUP_EPOCH", "10",
+                "OPTIM.WARMUP_TYPE", "constant", "OPTIM.WARMUP_CONS_LR", "1e-3",
+                "TRAIN.LOSSFUNC", "double_ranking", "TRAIN.ema", "True", "TRAINER.N_CTX", "64",
+                "TRAIN.spatial_SCALE_image", "50", "TRAIN.CHECKPOINT_FREQ", "5",
+                "TRAIN.PRINT_FREQ", "4", "TRAIN.probe_holdout", "0", "SEED", "1"]
+
+
+def caption_labels(toks):
+    """Multi-hot labels that a caption's tokens decide: the classes of its
+    first three BPE ids, skewed towards the low classes (u^3 of a uniform
+    u), so the prompts have frequencies and token cues to learn."""
+    labels = np.zeros((len(toks), 80), np.int8)
+    u = (toks[:, 1:4] % 997) / 997.0
+    np.put_along_axis(labels, (80 * u ** 3).astype(np.int64), 1, axis=1)
+    return labels
+
+
+TRAIN_RUNS = {  # run: (trainer options, its caption branch's path in PATH_KERNELS)
+    "fp32": ([], "plain"),
+    "bf16": (["TRAINER.PREC", "bf16"], "bf16"),
+    "int8": (["TRAIN.int8_captions", "True"], "int8"),
+    "fp32+evidence": (["TRAINER.use_evidence", "True"], "plain"),
+}
+# the step's parts between its marks (engine/trainer.make_train_step), and
+# the split they are printed in
+STEP_MARKS = ("caption", "teacher", "prompt forward", "loss", "backward", "optimizer")
+STEP_SPLIT = {"caption branch (frozen, no_grad)": ("caption",),
+              "prompt branch forward + backward": ("prompt forward", "backward"),
+              "loss + EMA teacher": ("teacher", "loss"),
+              "optimizer (SGD, EMA twin kept)": ("optimizer",)}
+
+
+def cos_rows(a, b):
+    a, b = a.double(), b.double()
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+
+def flat_tree(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in flat_tree(tree[k])]
+    return [tree.reshape(-1)] if isinstance(tree, torch.Tensor) else []
+
+
+def trees_equal(a, b):
+    fa, fb = flat_tree(a), flat_tree(b)
+    return len(fa) == len(fb) and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()) for x, y in zip(fa, fb))
+
+
+def step_split(trainer, batch, reps=3):
+    """Per-part device times of warm training steps by CUDA events recorded
+    at the step's own marks (median of ``reps``), on a copy of the state."""
+    runs = []
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True)]
+        ev[0].record()
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            ev.append(e)
+
+        trainer.train_step(trainer.state, batch["img"], batch["label"], mark=mark)
+        torch.cuda.synchronize()
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(STEP_MARKS))])
+    ms = dict(zip(STEP_MARKS, np.median(np.asarray(runs[1:]), axis=0)))
+    return {name: float(sum(ms[m] for m in parts)) for name, parts in STEP_SPLIT.items()}
+
+
+def train_run(name, clip_cfg, text, dataset, card, out_dir):
+    """CaptionDistillTrainer.train() for 2 epochs; its losses, first-step
+    caption features and prompt gradients, launches, rates and split."""
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.engine.trainer import CaptionDistillTrainer
+    from leclip_tpu_torch.ops import launches
+
+    opts, path = TRAIN_RUNS[name]
+    cfg = setup_config(opts=TRAIN_RECIPE + opts + ["OUTPUT_DIR", out_dir])
+    torch.cuda.reset_peak_memory_stats()
+    trainer = CaptionDistillTrainer(cfg, {"text": text}, clip_cfg, dataset=dataset,
+                                    device=DEVICE)
+    if trainer.caption_route != path:
+        raise AssertionError(f"[train:{name}] caption branch {trainer.caption_route}, "
+                             f"expected {path}")
+    first = next(iter(trainer.batcher.epoch(0)))
+    feats = trainer.caption_features(first["img"])
+    start = trainer.state
+    step = trainer.train_step
+    losses, grads = [], []
+
+    def recording_step(state, captions, labels, mark=None):
+        new, metrics = step(state, captions, labels, mark=mark)
+        losses.append(metrics)
+        if not grads:  # the first step's gradient: its trace less the weight decay
+            wd = cfg.OPTIM.WEIGHT_DECAY
+            grads.append({k: new.opt_state["1"]["trace"][k] - wd * state.params[k]
+                          for k in state.params})
+        return new, metrics
+
+    trainer.train_step = recording_step
+    steps = trainer.batcher.steps_per_epoch() * cfg.OPTIM.MAX_EPOCH
+    launches.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.train()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches.launch_counts()
+    trainer.train_step = step
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = [{k: float(v) for k, v in m.items()} for m in losses]
+    expect_launches(f"[train:{name}] train()", counts, path, 12 * steps)
+    if len(loss) != steps or not all(np.isfinite(v) for m in loss for v in m.values()):
+        raise AssertionError(f"[train:{name}] losses not finite / {len(loss)} steps: {loss}")
+    if not loss[-1]["loss"] < loss[0]["loss"]:
+        raise AssertionError(f"[train:{name}] loss after {steps} steps {loss[-1]['loss']} not "
+                             f"below the first step's {loss[0]['loss']}")
+    split = step_split(trainer, first)
+    rows = steps * cfg.DATALOADER.BATCH_SIZE_TRAIN
+    log(f"[train:{name}] caption branch {path} ({PATH_KERNELS[path] or 'no kernel'} a layer); "
+        f"train(): {steps} steps in {secs:.3f} s = {steps / secs:.3f} steps/s, "
+        f"{rows / secs:.1f} captions/s (first-step setup and the checkpoint write included) "
+        f"on {card}; peak memory {peak:.2f} GiB; launches {counts} (expected "
+        f"{PATH_KERNELS[path] or 'none'} x 12 layers x {steps} steps)")
+    log(f"[train:{name}] loss step 1 {loss[0]} -> step {steps} {loss[-1]}")
+    warm = sum(split.values())
+    log(f"[train:{name}] one warm step, {warm:.3f} ms by CUDA events ({1e3 / warm:.3f} steps/s, "
+        f"{cfg.DATALOADER.BATCH_SIZE_TRAIN * 1e3 / warm:.1f} captions/s): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in split.items()))
+    return dict(trainer=trainer, cfg=cfg, start=start, state=state, feats=feats, grad=grads[0],
+                loss=loss, counts=counts, secs=secs, steps=steps, split=split, peak=peak,
+                first=first)
+
+
+# A kernel route's caption features against the CPU port's same route on
+# the same weights (the kernels' plain versions), whole 12-layer branch, min
+# cosine a row. bf16: the kernels' 4-ulp accumulation-order differences,
+# compounded (bf16 against fp32 measured 0.9999). int8: with a bf16
+# residual stream such differences flip int8 codes in every layer, so two
+# int8 runs differ by quantization noise (measured 0.9995, max |d| 3e-3 of
+# unit rows; the int8 path's fp32-residual bound, rows within 2e-4, does
+# not hold: every row moves). Each layer is held tightly in phases 1-2 at
+# this shape; this catches faults of composition.
+BRANCH_COS = {"bf16": 0.9995, "int8": 0.999}
+BRANCH_CAP = 2e-2  # max |d| of unit rows, the int8 path's cap
+INT8_DEPARTURE_COS = 0.999  # bf16 against fp32 residual stream (0.99952 on the CPU)
+
+
+def branch_against_cpu(name, run, clip_cfg, text, n=64):
+    """The run's first-step caption features of ``n`` captions on the card
+    against the CPU port's route on the same tower and kernel weights (the
+    kernels' plain versions); for int8 also against the fp32 residual
+    stream of the JAX package's q8 route."""
+    from leclip_tpu_torch.device import tree_map
+    from leclip_tpu_torch.models.dense_clip import encode_captions
+    from leclip_tpu_torch.ops.quant import quantize_stack_on_device
+
+    kw, flags = run["trainer"]._step_kwargs, run["trainer"].flags
+    cpu = lambda t: t.cpu()  # noqa: E731
+    caps = torch.as_tensor(run["first"]["img"][:n])
+    text32 = tree_map(cpu, text)
+    q8 = None if kw["caption_q8"] is None else tree_map(cpu, kw["caption_q8"])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        refs = {"same": encode_captions({"text": tree_map(cpu, kw["caption_text"])}, clip_cfg,
+                                        caps, flags, q8=q8, fused=kw["caption_fused"])}
+        if name == "int8":
+            refs["fp32 residual"] = encode_captions(
+                {"text": text32}, clip_cfg, caps, flags,
+                q8=quantize_stack_on_device(text32["blocks"]))
+    secs = time.perf_counter() - t0
+    valid = (refs["same"].pos_mask == 0).numpy()
+    ok = True
+    for field in ("global_feat", "spatial_feats"):
+        out = getattr(run["feats"], field)[:n].float().cpu()
+        got = {}
+        for k, r in refs.items():
+            r = getattr(r, field).float()
+            o = out
+            if field == "spatial_feats":
+                o, r = o[valid], r[valid]
+            got[k] = (cos_rows(o, r).min().item(),
+                      ((o - r).abs().max() / r.abs().max().clamp(min=1.0)).item())
+        cos, worst = got["same"]
+        ok &= bool(torch.isfinite(out).all() and cos >= BRANCH_COS[name] and worst <= BRANCH_CAP)
+        msg = (f"[train:{name}] {field} of {n} captions, card against the CPU port's route on the "
+               f"same weights: min cosine {cos:.6f} (>= {BRANCH_COS[name]}), max |d| {worst:.4g} "
+               f"(<= {BRANCH_CAP:g})")
+        if "fp32 residual" in got:
+            dep = got["fp32 residual"][0]
+            ok &= dep >= INT8_DEPARTURE_COS
+            msg += (f"; against the fp32 residual stream (the JAX package's q8 route) min cosine "
+                    f"{dep:.6f} (>= {INT8_DEPARTURE_COS})")
+        log(msg + f"; CPU {secs:.1f} s")
+    if not ok:
+        raise AssertionError(f"[train:{name}] the card's caption branch disagrees with the CPU "
+                             "port's")
+
+
+def phase_train(card, inputs):
+    """The caption-distillation trainer that all 19 recipes run, at RN50's
+    text width (12x512, 8 heads, embed 1024; seeded random weights): 8,192
+    synthetic captions with token-decided multi-hot labels over the 80 COCO
+    classes, the ema recipe's settings (TRAIN_RECIPE), train() for 2 epochs
+    under TRAINER.PREC fp32, bf16 (caption branch on attn_block_bf16 +
+    mlp_bf16), TRAIN.int8_captions (ln_quant + the int8 blocks), and fp32
+    with use_evidence. Checks: launches, finite and falling loss, bf16 / int8
+    caption features and prompt gradients against fp32, the bf16 / int8
+    caption branch against the CPU port's on the same weights, the fp32 step in
+    full fp32 (TF32 switched on around it; float64 on the card), the
+    checkpoint's read-back, resume, and a make_engine member from the
+    checkpoint scoring one batch."""
+    from leclip_tpu_torch.data.datasets import CaptionDataset
+    from leclip_tpu_torch.data.vocab import COCO_OBJECT_CATEGORIES
+    from leclip_tpu_torch.device import cast_floating
+    from leclip_tpu_torch.engine import checkpoint as ck
+    from leclip_tpu_torch.engine import trainer as trainer_mod
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.engine.trainer import CaptionDistillTrainer, make_train_step
+    from leclip_tpu_torch.inference.pipeline import load_ensemble_specs, make_engine
+    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
+    from leclip_tpu_torch.models.text import init_text_params
+
+    _, _, toks, _, images = inputs
+    clip_cfg = PRESETS["RN50"]
+    gen = torch.Generator(device=DEVICE).manual_seed(60)
+    text = init_text_params(gen, clip_cfg.vocab_size, clip_cfg.context_length,
+                            clip_cfg.transformer_width, clip_cfg.transformer_layers,
+                            clip_cfg.embed_dim, device=DEVICE)
+    dataset = CaptionDataset(toks, caption_labels(toks), [], list(COCO_OBJECT_CATEGORIES))
+    log(f"[train] RN50 text tower {clip_cfg.transformer_layers}x{clip_cfg.transformer_width}, "
+        f"{clip_cfg.transformer_heads} heads, embed {clip_cfg.embed_dim} (fp32, seeded random); "
+        f"{len(toks)} captions, {dataset.labels.sum(1).mean():.2f} labels a caption; recipe "
+        f"{' '.join(TRAIN_RECIPE)}")
+    tmp = tempfile.mkdtemp(prefix="leclip_train_")
+    try:
+        runs = {name: train_run(name, clip_cfg, text, dataset, card, os.path.join(tmp, name))
+                for name in TRAIN_RUNS}
+        ref = runs["fp32"]
+        for name in ("bf16", "int8"):
+            r = runs[name]
+            valid = ref["feats"].pos_mask == 0
+            cg = cos_rows(r["feats"].global_feat, ref["feats"].global_feat).min().item()
+            cs = cos_rows(r["feats"].spatial_feats, ref["feats"].spatial_feats)[valid].min().item()
+            gr = torch.cat(flat_tree(r["grad"])), torch.cat(flat_tree(ref["grad"]))
+            cgrad = cos_rows(gr[0][None], gr[1][None]).item()
+            log(f"[train:{name}] first step against fp32: caption features min cosine global "
+                f"{cg:.5f}, per token {cs:.5f} (>= 0.99); prompt gradient cosine {cgrad:.6f} "
+                f"(>= 0.99)")
+            if not (cg >= 0.99 and cs >= 0.99 and cgrad >= 0.99):
+                raise AssertionError(f"[train:{name}] disagrees with the fp32 run")
+
+        # each kernel route's caption branch against the CPU port's on the
+        # same weights (the kernels' plain versions); for int8 also how far
+        # its bf16 residual stream departs from the JAX package's fp32 one
+        for name in ("bf16", "int8"):
+            branch_against_cpu(name, runs[name], clip_cfg, text)
+
+        # the fp32 step in full fp32: TF32 switched on around it changes nothing;
+        # with the trainer's guard lifted it would
+        trainer, batch, start = ref["trainer"], ref["first"], ref["start"]
+        want, want_m = trainer.train_step(start, batch["img"], batch["label"])
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        guard = trainer_mod.no_tf32
+        try:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            got, got_m = trainer.train_step(start, batch["img"], batch["label"])
+            trainer_mod.no_tf32 = contextlib.nullcontext  # what TF32 would have given
+            lifted, _ = trainer.train_step(start, batch["img"], batch["label"])
+        finally:
+            trainer_mod.no_tf32 = guard
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        g_want = torch.cat(flat_tree(want.opt_state["1"]["trace"]))
+        d_lift = ((torch.cat(flat_tree(lifted.opt_state["1"]["trace"])) - g_want).abs().max()
+                  / g_want.abs().max()).item()
+        same = trees_equal(got._asdict(), want._asdict()) and float(got_m["loss"]) == float(
+            want_m["loss"])
+        log(f"[train:fp32] one step with TF32 switched on around it equals the "
+            f"allow_tf32=False step: {same}; with the trainer's guard lifted the momentum "
+            f"trace moves by {d_lift:.3g} of its largest value")
+        if not same:
+            raise AssertionError("[train:fp32] the fp32 step ran in TF32")
+
+        # ... and agrees with the same step in float64 on the card
+        f64 = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
+        consts = {k: f64(v) if isinstance(v, torch.Tensor) else v
+                  for k, v in trainer.constants.items()}
+        step64 = make_train_step({"text": cast_floating(text, torch.float64)}, clip_cfg, consts,
+                                 trainer.optimizer, trainer.flags, ema=True,
+                                 momentum=ref["cfg"].TRAIN.momentum)
+        s64, m64 = step64(start._replace(params=cast_floating(start.params, torch.float64),
+                                         ema_params=cast_floating(start.ema_params,
+                                                                  torch.float64),
+                                         opt_state=cast_floating(start.opt_state,
+                                                                 torch.float64)),
+                          batch["img"], batch["label"])
+        t32 = torch.cat(flat_tree(want.opt_state["1"]["trace"])).double()
+        t64 = torch.cat(flat_tree(s64.opt_state["1"]["trace"]))
+        d_grad = ((t32 - t64).abs().max() / t64.abs().max()).item()
+        d_loss = abs(float(want_m["loss"]) - float(m64["loss"])) / abs(float(m64["loss"]))
+        p32, p64 = torch.cat(flat_tree(want.params)).double(), torch.cat(flat_tree(s64.params))
+        d_par = ((p32 - p64).abs().max() / p64.abs().max()).item()
+        log(f"[train:fp32] one step against float64 on the card: loss {d_loss:.3g}, gradient "
+            f"(momentum trace) {d_grad:.3g}, params {d_par:.3g} relative (<= 1e-4)")
+        if max(d_loss, d_grad, d_par) > 1e-4:
+            raise AssertionError("[train:fp32] the fp32 step disagrees with float64")
+
+        # the checkpoint reads back bitwise; a trainer resumed from it takes the
+        # uninterrupted third epoch's first step exactly
+        path = ck.latest_checkpoint(ref["cfg"].OUTPUT_DIR, trainer.model_name)
+        payload = ck.load_checkpoint(path)
+        state = ref["state"]
+        back = all(trees_equal(payload[k], getattr(state, k))
+                   for k in ("params", "ema_params", "opt_state")) and payload["step"] == state.step
+        batch3 = next(iter(trainer.batcher.epoch(2)))
+        cont, cont_m = trainer.train_step(state, batch3["img"], batch3["label"])
+        rcfg = setup_config(opts=TRAIN_RECIPE + ["OUTPUT_DIR", "", "RESUME",
+                                                 ref["cfg"].OUTPUT_DIR])
+        resumed = CaptionDistillTrainer(rcfg, {"text": text}, clip_cfg, dataset=dataset,
+                                        device=DEVICE)
+        rstate, start_epoch = ck.resume_if_exists(resumed.state, rcfg.RESUME,
+                                                  resumed.model_name)
+        rnext, r_m = resumed.train_step(rstate, batch3["img"], batch3["label"])
+        exact = (start_epoch == 2 and rnext.step == cont.step
+                 and trees_equal(rnext._asdict(), cont._asdict())
+                 and float(r_m["loss"]) == float(cont_m["loss"]))
+        log(f"[train:fp32] {os.path.basename(path)} ({os.path.getsize(path)} bytes, step "
+            f"{payload['step']}) reads back bitwise: {back}; resumed at epoch {start_epoch + 1}, "
+            f"its first step equals the uninterrupted run's: {exact}")
+        if not (back and exact):
+            raise AssertionError("[train:fp32] checkpoint read-back / resume differs")
+
+        # the checkpoint as an RN50 ensemble member (every shipped recipe's
+        # scoring path): load_prompt_params, make_engine, one batch
+        gen = torch.Generator(device=DEVICE).manual_seed(61)
+        params = init_clip_params(gen, clip_cfg, dtype=torch.bfloat16, device=DEVICE)
+        params["text"] = text
+        model_dir = os.path.join(tmp, "best_model", "ema")
+        os.makedirs(model_dir)
+        shutil.copy(path, os.path.join(model_dir, "model.ckpt"))
+        ecfg = setup_config(opts=["TEST.PREC", "auto", "TEST.multi_scale", "(2, 3, 4)"])
+        specs = load_ensemble_specs(ecfg, params, clip_cfg, list(COCO_OBJECT_CATEGORIES),
+                                    os.path.dirname(model_dir))
+        loaded = ck.load_prompt_params(os.path.dirname(model_dir), "ema", device=DEVICE)
+        engine = make_engine(ecfg, params, clip_cfg, specs, device=DEVICE)
+        scores = list(engine.run_batches_fused_staged(iter([images])))[0]
+        if (list(specs) != ["ema"] or not trees_equal(loaded, state.params)
+                or scores.shape != (N_IMAGES, 80) or not np.isfinite(scores).all()):
+            raise AssertionError("[train] the checkpoint did not score as an ensemble member")
+        log(f"[train] model.ckpt as RN50 member 'ema' (n_ctx "
+            f"{int(specs['ema'].trainable['ctx'].shape[0])}): make_engine precision "
+            f"{engine.precision}, one batch of {N_IMAGES} images -> scores {scores.shape}, "
+            f"finite; first row head {np.round(scores[0, :4], 4).tolist()}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = {k: sum(r["counts"][k] for r in runs.values()) for k in ref["counts"]}
+    return total, {name: {key: r[key] for key in ("secs", "steps", "split", "peak")}
+                   for name, r in runs.items()}
+
+
 KERNEL_SOURCES = {  # name: (source, file:line of the TPU kernel, its precision path)
     "attn_block_bf16": ("leclip_tpu_torch/csrc/attn_block_bf16.cu",
                         "leclip_tpu/ops/block_kernels.py:122", "bf16"),
@@ -1322,24 +1710,32 @@ def main() -> int:
     total_rn, rn_bank_counts, _ = phase_rn50(card, inputs)
     for k, n in total_rn.items():
         total[k] = total.get(k, 0) + n
+    torch.cuda.empty_cache()
+    train_counts, _ = phase_train(card, inputs)
+    for k, n in train_counts.items():
+        total[k] = total.get(k, 0) + n
 
     line = {"kernels": []}
     for k, (src, replaces, prec) in KERNEL_SOURCES.items():
-        vit, text = kern["vit"][k], kern["text"][k]
+        vit, text, train = kern["vit"][k], kern["text"][k], kern["train"][k]
         line["kernels"].append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": total[k],
-            "max_abs_err": max(vit["max_abs_err"], text["max_abs_err"]),
+            "max_abs_err": max(vit["max_abs_err"], text["max_abs_err"], train["max_abs_err"]),
             "ms": vit["ms"], "plain_ms": vit["plain_ms"], "bound_ms": vit["bound_ms"],
             "bound_by": vit["bound_by"], "library_ms": vit["library_ms"],
             "shape": f"ViT-B/16 image tower [{N_IMAGES * 305}, 200, 768]",
             "text_shape": "caption bank [256, 77, 512] causal",
             "text": {key: text[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                 "bound_by")},
+            "train_shape": "trainer's caption branch [1024, 77, 512] causal",
+            "train": {key: train[key] for key in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "bound_by")},
             "path": f"TEST.PREC {prec}" + (" (ViT-B/16); RN50 TEST.PREC auto, its caption bank"
                                            if prec == "bf16" else ""),
             "launches_bank": bank_counts[prec][k], "launches_scoring": score_counts[prec][k],
             **({"launches_rn50_bank": rn_bank_counts[k]} if prec == "bf16" else {}),
+            "launches_train": train_counts[k],
             **({"device_ms": vit["device_ms"], "text_device_ms": text["device_ms"]}
                if "device_ms" in vit else {}),
             **({"launch_ms": launch_ms[k]} if k in launch_ms else {}),

@@ -1,5 +1,6 @@
-"""Threaded image decode for evaluation (the port's own copy of
-``load_image`` / ``image_size`` / ``ImageBatcher`` in
+"""Host-side data loading: the caption batcher of training and threaded image
+decode for evaluation (the port's own copy of ``CaptionBatcher``,
+``load_image``, ``image_size`` and ``ImageBatcher`` in
 leclip_tpu/data/loader.py). PIL is imported when an image is read. The
 native libjpeg runtime of the JAX package is not ported; decoding uses a
 PIL thread pool."""
@@ -10,6 +11,37 @@ import concurrent.futures
 from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
+
+
+class CaptionBatcher:
+    """Shuffled batches of (tokens, labels) with deterministic per-epoch
+    permutations (set_epoch analogue): the JAX package's
+    ``default_rng(seed + epoch)`` permutations, so both packages train on
+    the same batches. Batches are padded up to the full batch size by
+    wrapping around, so every step has the same shape. One device: the JAX
+    package's data shards wait for multi-GPU training."""
+
+    def __init__(self, tokens: np.ndarray, labels: np.ndarray, batch_size: int, seed: int = 0):
+        assert len(tokens) == len(labels)
+        self.tokens = tokens
+        self.labels = labels
+        self.batch_size = batch_size
+        self.seed = seed
+
+    def steps_per_epoch(self) -> int:
+        return max(1, len(self.tokens) // self.batch_size)
+
+    def epoch(self, epoch: int) -> Iterator[dict]:
+        order = np.random.default_rng(self.seed + epoch).permutation(len(self.tokens))
+        bs = self.batch_size
+        for s in range(self.steps_per_epoch()):
+            idx = order[s * bs : (s + 1) * bs]
+            if len(idx) < bs:
+                idx = np.concatenate([idx, order[: bs - len(idx)]])
+            yield {
+                "img": self.tokens[idx].astype(np.int32),
+                "label": self.labels[idx].astype(np.float32),
+            }
 
 
 def load_image(path: str) -> np.ndarray:

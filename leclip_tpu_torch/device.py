@@ -6,6 +6,7 @@ caller passes ``device="cpu"`` (as the tests do)."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -40,3 +41,18 @@ def cast_floating(tree, dtype: Optional[torch.dtype]):
     if dtype is None:
         return tree
     return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """fp32 convolutions and products in full fp32 for the duration of the
+    call: cuDNN runs fp32 convolutions in TF32 by default, which keeps about
+    three decimal digits. The previous settings are restored on exit."""
+    cudnn, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = mm

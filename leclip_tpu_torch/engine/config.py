@@ -4,8 +4,8 @@ freeze, with plain nested dataclasses. PyYAML is imported only when a YAML
 file is merged.
 
 Every field of the JAX package's config is kept, so its recipes and CLI
-overrides load unchanged; the training and TPU-specific fields are read by
-nothing in the port yet. ``resolve_test_precision`` carries the JAX package's
+overrides load unchanged; the TPU-specific fields (mesh, prefetch) are read
+by nothing in the port. ``resolve_test_precision`` carries the JAX package's
 precision rule with a CUDA device standing where that rule says TPU."""
 
 from __future__ import annotations
@@ -123,18 +123,12 @@ class TrainConfig:
     CHECKPOINT_FREQ: int = 1
     PRINT_FREQ: int = 5
     sync_every: int = 0         # host-sync (metrics fetch + NaN check) every
-                                # N steps; 0 = auto: PRINT_FREQ on TPU (up to
-                                # N steps pipeline on-device — the per-step
-                                # fetch otherwise serialises the ~32 ms
-                                # dispatch round trip with compute), 1
-                                # elsewhere (CPU collectives deadlock past
-                                # ~hundreds of queued steps)
-    prefetch_batches: int = 0   # device-prefetch depth for the train loop:
-                                # N > 0 uploads batch N+1 from a background
-                                # thread while batch N computes (the ~32 ms
-                                # device_put RPC otherwise lands on the loop
-                                # — measured 31.6 ms/step on the RN50
-                                # rehearsal); 0 = inline upload
+                                # N steps; 0 = auto: PRINT_FREQ on the card
+                                # (the host queues the steps between), 1 on
+                                # the CPU
+    prefetch_batches: int = 0   # the JAX package's device-prefetch depth;
+                                # the port uploads each batch inline and
+                                # raises for any other value
     IF_LEARN_SCALE: bool = False
     IF_LEARN_spatial_SCALE: bool = False
     spatial_SCALE_text: float = 50.0
@@ -143,18 +137,12 @@ class TrainConfig:
     LMPT_LAMBDA: float = 0.5
     int8_captions: bool = False  # W8A8 text tower for the frozen caption
                                  # branch (~1.5x); prompt branch stays fp
-    fused_captions: bool = True  # bf16 fused-block kernels for the frozen
-                                 # caption branch (ops/block_kernels.py);
-                                 # effective on TPU with PREC bf16 only and
-                                 # superseded by int8_captions. At caption
-                                 # shapes fused bf16 beats BOTH XLA and int8
-                                 # (probe_text_fused.py) with no quant noise.
-    profile_dir: str = ""       # when set, trace a bounded window of first-
-                                # epoch steps with jax.profiler into this
-                                # directory (utils/logging.py profiler_trace) —
-                                # the SURVEY §5 tracing upgrade the reference
-                                # lacks (its only timing is AverageMeter,
-                                # dassl/utils/meters.py:7-44)
+    fused_captions: bool = True  # bf16 block kernels for the frozen caption
+                                 # branch (ops/block_kernels.py); effective on
+                                 # the card with PREC bf16 only, superseded by
+                                 # int8_captions
+    profile_dir: str = ""       # the JAX package's profiler window; the port
+                                # raises when it is set (not ported yet)
     # Hold out every Nth training caption as a LABELED accuracy probe
     # (0 = off). The competition val split is unlabeled (mAP always 0), so
     # this held-out texts-as-images split is the only way a training run can

@@ -1,7 +1,9 @@
-"""DenseCLIP test-side forwards (counterpart of the test half of
-leclip_tpu/models/dense_clip.py): prompt text features, the shared local-
-logits aggregation, exact top-k caption retrieval, image features and test
-logits. The train half waits for the training slice.
+"""DenseCLIP forwards (counterpart of leclip_tpu/models/dense_clip.py): prompt
+text features, the shared local-logits aggregation, exact top-k caption
+retrieval, image features and test logits; and the training half: the frozen
+caption features (texts as images, computed under ``torch.no_grad()``, the
+counterpart of ``stop_gradient``) and the training logits of the prompt
+branch, through which the gradients flow.
 
 Where the JAX package vmaps over ensemble members, the port carries a
 leading member axis instead: ``test_logits_from_features`` accepts text
@@ -18,7 +20,7 @@ from ..ops.attention import _mm32
 from .clip import CLIPConfig, clip_encode_image
 from .prompt import assemble_prompts
 from .resnet import project_dense
-from .text import encode_text_embeds
+from .text import encode_text_embeds, encode_text_sequence
 
 NEG_MASK_VALUE = -10000.0
 FIXED_LOGIT_SCALE = 4.0
@@ -114,6 +116,80 @@ def _aggregate_local(spatial_feats: torch.Tensor, text_feats: Dict[str, torch.Te
             logits_neg = torch.where(valid, logits_raw, 0.0)
     logits_local = torch.sum(logit_scale * logits_neg * prob_spatial, dim=-2)
     return logits_local, logits_neg
+
+
+class CaptionFeatures(NamedTuple):
+    """Frozen text-tower encodings of a caption batch, shared between the
+    student and EMA-teacher heads (the reference computes them once per step,
+    Caption_distill_double.py:474-477)."""
+
+    global_feat: torch.Tensor    # [B, E] L2-normalised EOT feature
+    spatial_feats: torch.Tensor  # [B, L, E] L2-normalised per-token features
+    pos_mask: torch.Tensor       # [B, L] additive pad mask (-10000 at pads)
+
+
+def encode_captions(clip_params: dict, clip_cfg: CLIPConfig, captions: torch.Tensor,
+                    flags: DenseFlags, q8: dict = None, fused: bool = False) -> CaptionFeatures:
+    """Captions [B, 77] → frozen "image-like" features, without gradients.
+
+    ``q8``: int8 text-tower weights (ops/quant.py), the W8A8 kernels;
+    ``fused``: the bf16 block kernels (ops/block_kernels.py). Both kernels
+    are forward-only, which is why this branch runs under ``no_grad``; the
+    prompt branch keeps the plain math."""
+    text = clip_params["text"]
+    with torch.no_grad():
+        embeds = text["token_embedding"][captions.long()]
+        seq = encode_text_sequence(text, embeds, clip_cfg.transformer_heads,
+                                   impl=flags.attention_impl, q8=q8, fused=fused)
+    eot = captions.argmax(-1).long()
+    global_feat = _normalize(seq[torch.arange(seq.shape[0], device=seq.device), eot])
+    spatial_feats = _normalize(seq)
+    pos_mask = (captions == 0).float() * NEG_MASK_VALUE
+    return CaptionFeatures(global_feat, spatial_feats, pos_mask)
+
+
+def _scaled_product(logit_scale, feat: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
+    """``logit_scale * feat @ text.T`` with JAX's dtype promotion."""
+    dt = torch.promote_types(feat.dtype, text.dtype)
+    if isinstance(logit_scale, torch.Tensor):
+        dt = torch.promote_types(dt, logit_scale.dtype)
+    return (logit_scale * feat.to(dt)) @ text.to(dt).T
+
+
+def train_logits_from_features(clip_params: dict, clip_cfg: CLIPConfig, trainable: dict,
+                               constants: dict, feats_in: CaptionFeatures, flags: DenseFlags
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(prompt params, frozen caption features) → (logits_global, logits_local)."""
+    feats = prompt_text_features(clip_params, clip_cfg, trainable, constants, flags)
+    logit_scale, tmp_scale = _scales(trainable, flags, train=True)
+    logits_global = _scaled_product(logit_scale, feats_in.global_feat, feats["pos"])
+    logits_local, _ = _aggregate_local(feats_in.spatial_feats, feats, logit_scale, tmp_scale,
+                                       flags.use_evidence, feats_in.pos_mask)
+    return logits_global, logits_local
+
+
+def dense_train_forward(clip_params: dict, clip_cfg: CLIPConfig, trainable: dict,
+                        constants: dict, captions: torch.Tensor, flags: DenseFlags
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Texts-as-images training forward → (logits_global, logits_local)."""
+    caption_feats = encode_captions(clip_params, clip_cfg, captions, flags)
+    return train_logits_from_features(clip_params, clip_cfg, trainable, constants,
+                                      caption_feats, flags)
+
+
+def custom_clip_train_forward(clip_params: dict, clip_cfg: CLIPConfig, trainable: dict,
+                              constants: dict, captions: torch.Tensor, flags: DenseFlags):
+    """Global-only variant (ref CustomCLIP :338-352): caption EOT feature vs
+    positive prompt features."""
+    text = clip_params["text"]
+    with torch.no_grad():
+        embeds = text["token_embedding"][captions.long()]
+        feat = encode_text_embeds(text, embeds, captions.argmax(-1), clip_cfg.transformer_heads,
+                                  impl=flags.attention_impl)
+    feat = _normalize(feat)
+    feats = prompt_text_features(clip_params, clip_cfg, trainable, constants, flags,
+                                 include_evidence=False)
+    return _scaled_product(FIXED_LOGIT_SCALE, feat, feats["pos"]), None
 
 
 def retrieval_augment(global_feat: torch.Tensor, caption_bank: torch.Tensor,

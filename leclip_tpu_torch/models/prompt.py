@@ -4,8 +4,8 @@ temperatures, frozen SOS-prefix / CLS+EOS-suffix token embeddings per class,
 and end/middle/front class-token placement.
 
 Split into a *trainable* dict (what a checkpoint holds) and a *constant*
-dict (embedded prompt scaffolding rebuilt from the class list). The EMA
-helpers wait for the training slice."""
+dict (embedded prompt scaffolding rebuilt from the class list), and the EMA
+twin of the trainable dict that the training step keeps."""
 
 from __future__ import annotations
 
@@ -138,3 +138,25 @@ def assemble_prompts(trainable: dict, constants: dict, neg_prompt_wcls: bool = T
         return prompts, prompts_neg, prompts_evd
 
     raise ValueError(f"unknown class_token_position {position!r}")
+
+
+def ema_init(trainable: dict) -> dict:
+    """EMA twin starts as a copy (ref copy_params, :547-552)."""
+    return {k: v.detach().clone() for k, v in trainable.items()}
+
+
+def ema_update(ema: dict, trainable: dict, momentum: float) -> dict:
+    """param_m ← m·param_m + (1-m)·param (ref _momentum_update, :554-559).
+
+    Rounded as the JAX package's compiled step rounds it: XLA contracts the
+    sum into fma(param_m, m, (1-m)·param), so param_m·m is not rounded on
+    its own. The sum is formed in float64 (exact for fp32 operands but for a
+    rare double rounding) and rounded once; the EMA teacher's ×10000 KL term
+    would turn the one-ulp difference of separate roundings into 1e-4 of
+    the loss."""
+    out = {}
+    for k, m in ema.items():
+        mom = torch.tensor(momentum, dtype=m.dtype).item()  # the constant in m's dtype
+        rest = trainable[k].detach() * (1.0 - momentum)
+        out[k] = (m.double() * mom + rest.double()).to(m.dtype)
+    return out

@@ -22,39 +22,24 @@ running statistics and cast to the activations' dtype, not folded into the
 conv weights; the pool's logits and softmax are fp32, and its probabilities
 are cast to v's dtype before the second product. An fp32 tower runs its
 convolutions and products in full fp32 (TF32 off inside the call, see
-:func:`_no_tf32`). The tower holds no hand-written kernel: the convolutions
+device.no_tf32). The tower holds no hand-written kernel: the convolutions
 are cuDNN's, as the JAX package leaves them to XLA, and the 50-token pool is
 plain PyTorch, as in JAX."""
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..device import no_tf32 as _no_tf32
 from ..device import tree_map
 from ..ops.attention import _matmul, _mm32, attention_core
 from ..ops.resize_matmul import cubic_kernel
 
 _BN_EPS = 1e-5
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    """fp32 convolutions and products in full fp32 for the duration of the
-    call: cuDNN runs fp32 convolutions in TF32 by default, which keeps about
-    three decimal digits. The previous settings are restored on exit."""
-    cudnn, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = cudnn
-        torch.backends.cuda.matmul.allow_tf32 = mm
 
 
 def conv_layout(w: torch.Tensor) -> torch.Tensor:

@@ -44,8 +44,13 @@ def _backbone(params: dict, x: torch.Tensor, n_heads: int, impl: str = "auto",
     mask)."""
     ctx_len = x.shape[1]
     x = x + params["positional_embedding"][:ctx_len].to(x.dtype)
-    x = run_transformer(x, params["blocks"], n_heads, mask=causal_mask(ctx_len, x.device),
-                        impl=impl, q8=q8, causal=True, fused=fused)
+    # the int8 stack runs in the dtype of its LN affines (bf16 where the
+    # card's kernels take it), the embeddings, ln_final and projection in
+    # the tower's own
+    stack_dtype = x.dtype if q8 is None else q8["ln1"][0].dtype
+    x = run_transformer(x.to(stack_dtype), params["blocks"], n_heads,
+                        mask=causal_mask(ctx_len, x.device), impl=impl, q8=q8, causal=True,
+                        fused=fused).to(x.dtype)
     return layer_norm(x, params["ln_final"]["scale"], params["ln_final"]["bias"])
 
 

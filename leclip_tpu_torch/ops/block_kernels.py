@@ -23,7 +23,10 @@ the bf16 qkv, per-head outputs and MLP hidden go through HBM, at exactly the
 points where the TPU kernels round them — later PRs fuse that traffic away.
 
 Each wrapper takes the plain version only for tensors on the CPU. For a CUDA
-tensor it launches the kernel or raises; it never falls back. ``launches``
+tensor it launches the kernel or raises; it never falls back. The kernels
+are forward-only: under grad mode, an input that requires grad makes every
+wrapper raise, on both devices (:func:`refuse_grad`), since a launch on
+``data_ptr()`` would hand back an output with no gradient. ``launches``
 on each wrapper counts the calls that launched the kernel (ops/launches.py
 reads and resets the counts of every kernel).
 
@@ -147,6 +150,18 @@ def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.bfloat16) -> N
         raise ValueError(f"{name}: data must start on a 16-byte boundary")
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise where autograd would want a gradient through a forward-only
+    kernel: grad mode is on and an input requires grad. Without this, the
+    CUDA launch would return an output with no ``grad_fn`` (the gradient
+    silently dropped), while the CPU's plain version would differentiate."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: the kernel is forward-only and an input requires "
+                           "grad; call it under torch.no_grad() (the JAX kernel has no "
+                           "VJP either)")
+
+
 def _raise_on(rc: int, kernel: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {rc}")
@@ -163,6 +178,7 @@ def attn_block_bf16(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
     [D, D] in [in, out] layout. ``kv_len`` masks trailing pad keys;
     ``causal`` adds the lower-triangular mask."""
     args = (x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b)
+    refuse_grad("attn_block_bf16", *args)
     if x.device.type == "cpu":
         return attn_block_bf16_plain(*args, n_heads, kv_len=kv_len, causal=causal, eps=eps)
     if x.device.type != "cuda":
@@ -207,6 +223,7 @@ def mlp_bf16(x, ln_scale, ln_bias, fc_w, fc_b, pj_w, pj_b,
     """x + MLP(LN(x)) over [..., D]; fc [D, H], proj [H, D] in [in, out]
     layout. Rows are independent, so any leading shape is flattened."""
     args = (x, ln_scale, ln_bias, fc_w, fc_b, pj_w, pj_b)
+    refuse_grad("mlp_bf16", *args)
     if x.device.type == "cpu":
         return mlp_bf16_plain(*args, eps=eps)
     if x.device.type != "cuda":

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .block_kernels import _raise_on, _stream, attention_plain
+from .block_kernels import _raise_on, _stream, attention_plain, refuse_grad
 
 NEG_INF = -1e30
 BLOCK_K = 256  # the TPU wrapper's default key block, where its rounding regimes split
@@ -225,7 +225,9 @@ def flash_attention(q, k, v, mask=None) -> torch.Tensor:
     broadcastable to ``[Tq, Tk]`` (e.g. causal, or a ``[Tk]`` pad-key row).
     Any 16-byte-aligned strides with a contiguous head dim go to the kernel
     as they are (others raise); the result is a ``[B, H, Tq, D]`` view of a
-    ``[B, Tq, H, D]`` buffer."""
+    ``[B, Tq, H, D]`` buffer. Forward-only: an input that requires grad
+    under grad mode raises (``block_kernels.refuse_grad``)."""
+    refuse_grad("flash_attention", q, k, v, mask)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask)
     if q.device.type != "cuda":

@@ -32,8 +32,10 @@ row pass use branch-free forms of the divisions that give the same values
 What bounds each kernel on the H100 is in the note at the top of its source.
 
 Each wrapper takes the plain version only for tensors on the CPU. For a CUDA
-tensor it launches the kernel or raises; it never falls back. ``launches`` on
-each wrapper counts the calls that launched the kernel. The CUDA kernels take
+tensor it launches the kernel or raises; it never falls back. The kernels are
+forward-only: an input that requires grad under grad mode raises on both
+devices (``block_kernels.refuse_grad``). ``launches`` on each wrapper counts
+the calls that launched the kernel. The CUDA kernels take
 bf16 activations and parameters, int8 weights in the kernel layout of
 ops/quant.py (``kernel_layout``), widths D % 128 == 0 up to 1024, hidden
 % 128 == 0, head width 32, 64 or 128, and any row count."""
@@ -43,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .block_kernels import _check, _ln32, _raise_on, _stream, attention_plain
+from .block_kernels import _check, _ln32, _raise_on, _stream, attention_plain, refuse_grad
 from .quant import int_matmul, quantize_rows
 
 # ------------------------------ plain versions -------------------------------
@@ -127,6 +129,7 @@ def _check_weight(name: str, w: torch.Tensor, shape, device) -> None:
 def ln_quant(x, scale, bias, eps: float = 1e-5):
     """LayerNorm + symmetric per-row int8 quantization over [..., D].
     Returns (x_i8 [..., D], s [..., 1] fp32) with LN(x) ≈ x_i8 · s."""
+    refuse_grad("ln_quant", x, scale, bias)
     if x.device.type == "cpu":
         return ln_quant_plain(x, scale, bias, eps)
     if x.device.type != "cuda":
@@ -158,6 +161,7 @@ def attn_block_int8(x, ln_scale, ln_bias, qkv_wi8, qkv_s, qkv_b, out_w, out_b,
     [D, 3D] int8 with per-channel scales ``qkv_s`` [3D], ``out_w`` [D, D] in
     [in, out] layout. ``kv_len`` masks trailing pad keys; ``causal`` adds
     the lower-triangular mask."""
+    refuse_grad("attn_block_int8", x, ln_scale, ln_bias, qkv_wi8, qkv_s, qkv_b, out_w, out_b)
     if x.device.type == "cpu":
         return attn_block_int8_plain(x, ln_scale, ln_bias, qkv_wi8, qkv_s, qkv_b, out_w, out_b,
                                      n_heads, kv_len=kv_len, causal=causal, eps=eps)
@@ -207,6 +211,7 @@ def mlp_int8(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b,
     """x + MLP(LN(x)) over [..., D] with int8 weight products; fc [D, H],
     proj [H, D] int8 with per-channel scales. Rows are independent, so any
     leading shape is flattened."""
+    refuse_grad("mlp_int8", x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b)
     if x.device.type == "cpu":
         return mlp_int8_plain(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b,
                               eps=eps)
@@ -217,6 +222,7 @@ def mlp_int8_with_hidden(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s,
                          eps: float = 1e-5):
     """:func:`mlp_int8`, also returning the requantized hidden the proj
     product read: (out, codes [rows, H] int8, scales [rows, 1] fp32)."""
+    refuse_grad("mlp_int8", x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s, pj_b)
     if x.device.type == "cpu":
         return _mlp_int8_parts_plain(x, ln_scale, ln_bias, fc_wi8, fc_s, fc_b, pj_wi8, pj_s,
                                      pj_b, eps)

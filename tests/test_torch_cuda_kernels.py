@@ -114,6 +114,36 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
 # ------------------------------ int8 kernels --------------------------------
 
 
+def test_wrappers_refuse_an_input_that_requires_grad(card):
+    """On the card, under grad mode, each forward-only wrapper raises for an
+    input that requires grad, before it launches anything (the launch on
+    ``data_ptr()`` would return an output with no ``grad_fn``: the gradient
+    silently dropped). Under ``no_grad`` the same call launches."""
+    from leclip_tpu_torch.ops import launches
+
+    rn, attn, mlp = _weights(card, 128, 512, 70)
+    _, ln1, attn8, mlp8 = _int8_layer(card, 128, 71)
+    x = rn(4, 32, 128).requires_grad_(True)
+    q = rn(2, 2, 32, 64).requires_grad_(True)
+    calls = {
+        "attn_block_bf16": lambda: bk.attn_block_bf16(x, *attn, 2, causal=True),
+        "mlp_bf16": lambda: bk.mlp_bf16(x, *mlp),
+        "ln_quant": lambda: qk.ln_quant(x, *ln1),
+        "attn_block_int8": lambda: qk.attn_block_int8(x, *attn8, 2, causal=True),
+        "mlp_int8": lambda: qk.mlp_int8(x, *mlp8),
+        "flash_attention": lambda: fa.flash_attention(q, q, q),
+    }
+    launches.reset_launch_counts()
+    for name, fn in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: the kernel is forward-only"):
+            fn()
+    assert not any(launches.launch_counts().values())
+    with torch.no_grad():
+        out = calls["attn_block_bf16"]()
+    torch.cuda.synchronize()
+    assert out.grad_fn is None and launches.launch_counts()["attn_block_bf16"] == 1
+
+
 def _int8_layer(card, d, seed):
     """One quantized layer from seeded bf16 blocks with outlier LN channels:
     (rn, ln1 affine, attention args, MLP args)."""
@@ -432,3 +462,51 @@ def test_rn50_fp32_tower_on_card_matches_cpu(card):
         scale = r.abs().max().item()
         assert torch.isfinite(o).all()
         assert (o.cpu() - r).abs().max().item() <= 1e-4 * scale
+
+
+# precision: (trainer options, the caption branch's kernels per layer)
+TRAIN_ROUTES = {
+    "fp32": ([], {}),
+    "bf16": (["TRAINER.PREC", "bf16"], {"attn_block_bf16": 1, "mlp_bf16": 1}),
+    "int8": (["TRAIN.int8_captions", "True"],
+             {"attn_block_int8": 1, "mlp_int8": 1, "ln_quant": 2}),
+}
+
+
+@pytest.mark.parametrize("prec", list(TRAIN_ROUTES))
+def test_train_step_on_card_launches_its_caption_kernels(card, prec):
+    """One training step of a small text tower (3 layers x 128, batch 16)
+    on the card per precision: the caption branch launches its route's
+    kernels once a layer (the fp32 route none), the prompt branch none, and
+    the loss is finite."""
+    import numpy as np
+
+    from leclip_tpu_torch.data.datasets import CaptionDataset
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.engine.trainer import CaptionDistillTrainer
+    from leclip_tpu_torch.models.clip import CLIPConfig, init_clip_params
+    from leclip_tpu_torch.ops import launches
+
+    cfg = CLIPConfig(64, 64, (1, 1, 1, 1), 8, None, transformer_width=128,
+                     transformer_heads=2, transformer_layers=3)
+    params = init_clip_params(torch.Generator(device=card).manual_seed(0), cfg, device=card)
+    rng = np.random.default_rng(0)
+    toks = np.zeros((32, 77), np.int32)
+    for i, n in enumerate(rng.integers(3, 20, 32)):
+        toks[i, 0], toks[i, 1:1 + n], toks[i, 1 + n] = 49406, rng.integers(1, 49406, n), 49407
+    labels = (rng.random((32, 80)) < 0.05).astype(np.int8)
+    opts, per_layer = TRAIN_ROUTES[prec]
+    tcfg = setup_config(opts=["DATALOADER.BATCH_SIZE_TRAIN", "16", "TRAINER.N_CTX", "4",
+                              "TRAIN.ema", "True", "TRAINER.use_evidence", "True",
+                              "OUTPUT_DIR", ""] + opts)
+    trainer = CaptionDistillTrainer(tcfg, params, cfg, device=card,
+                                    dataset=CaptionDataset(toks, labels, [], ["x"] * 80))
+    assert trainer.caption_route == ("plain" if prec == "fp32" else prec)
+    launches.reset_launch_counts()
+    state, aux = trainer.train_step(trainer.state, toks[:16], labels[:16])
+    counts = launches.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update({k: 3 * n for k, n in per_layer.items()})
+    assert counts == want
+    assert np.isfinite(float(aux["loss"])) and state.step == 1
+    assert all(v.grad_fn is None and torch.isfinite(v).all() for v in state.params.values())

@@ -12,7 +12,13 @@ import torch
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "leclip_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "leclip_tpu")
+# the training slice's modules, which the scans above must cover
+TRAINING = ("utils/registry.py", "utils/logging.py", "utils/tb_events.py",
+            "engine/metrics.py", "engine/evaluator.py", "data/freq_stats.py",
+            "data/labeling.py", "data/corpora.py", "data/datasets.py", "ops/losses.py",
+            "engine/train_state.py", "engine/flax_msgpack.py", "engine/checkpoint.py",
+            "engine/trainer.py", "cli/train.py")
 
 
 def _port_files():
@@ -82,3 +88,33 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     # explicit CPU is honoured
     assert resolve_device("cpu").type == "cpu"
     assert build_caption_bank(params, cfg, toks, device="cpu").shape == (2, cfg.embed_dim)
+
+
+def test_training_modules_are_scanned_and_import_alone():
+    import importlib
+
+    files = _port_files()
+    for rel in TRAINING:
+        path = os.path.join(ROOT, "leclip_tpu_torch", rel)
+        assert path in files, rel
+        importlib.import_module("leclip_tpu_torch." + rel[:-3].replace("/", "."))
+
+
+def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from leclip_tpu_torch.cli.train import main as train_main
+    from leclip_tpu_torch.data.datasets import CaptionDataset
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.engine.trainer import CaptionDistillTrainer, build_trainer
+    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
+
+    cfg = PRESETS["RN-TEST"]
+    params = init_clip_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    ds = CaptionDataset(np.zeros((4, 77), np.int32), np.zeros((4, 80), np.int8), [],
+                        ["dog"] * 80)
+    tcfg = setup_config(opts=["OUTPUT_DIR", str(tmp_path)])
+    for call in (lambda: CaptionDistillTrainer(tcfg, params, cfg, dataset=ds),
+                 lambda: build_trainer(tcfg, params, cfg, dataset=ds),
+                 lambda: train_main(["--backbone", "RN-TEST", "--output-dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert CaptionDistillTrainer(tcfg, params, cfg, dataset=ds, device="cpu").device.type == "cpu"
