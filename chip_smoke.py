@@ -69,6 +69,26 @@ Phases (any failure exits non-zero and prints no result line):
      uninterrupted run's next step exactly, and the checkpoint scores one
      batch as an RN50 make_engine member; steps/s, captions/s, peak memory
      and a per-step split by CUDA events are printed.
+  7. on the engines of phases 3 (ViT-B/16 TEST.PREC auto -> int8) and 5
+     (RN50 auto -> bf16, its bf16 bank), run after phase 5 and freed before
+     phase 6: the per-member dump path, run_full_inference(save_dir) over
+     four 480x640 PNG files in two batches, against the fused path on the
+     same files (cli.gen_final_ans on data.pkl / sim_matrix.pkl within 1e-4
+     of max(1, max|fused|); run_batch against run_batch_multidispatch;
+     JAX's pickle keys and shapes; int8 kernels in every ViT layer, none in
+     the RN50 tower), with both paths' crop-forwards/s; python -m
+     leclip_tpu_torch.cli.build_caption_bank --backbone RN50 at precision
+     default, bf16 and int8 over the 8,192 synthetic captions written as a
+     corpus, each bank bitwise equal to build_caption_bank() called here,
+     bf16 / int8 rows at cosine >= 0.995 to fp32, captions/s of the command
+     and of the encode; the scoring service (cli/serve.py build_service,
+     TEST.PREC auto, batch 8) for each engine behind a ThreadingHTTPServer:
+     128 POSTs of one 480x640 JPEG from 16 clients, every answer within 1e-4
+     of engine.run_batch_fused, /healthz 305 crops, /metrics 128 requests
+     and no error; images/s, p50/p99 latency, padding share, peak memory;
+     128 more at a 50 ms micro-batch window (reported); then 128 more with
+     one POST /reload in flight; and one line on whether
+     the native JPEG decoder's toolchain (g++, jpeglib.h, libjpeg) exists.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 
@@ -78,6 +98,7 @@ import contextlib
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -841,7 +862,9 @@ def phase_main_paths(card, inputs):
     total = {k: sum(c[p][k] for c in (bank_counts, score_counts) for p in c)
              for k in bank_counts["bf16"]}
     stages = stage_split("vit:bf16", engines["bf16"], images, card)
-    return total, bank_counts, score_counts, stages
+    keep = dict(engine=engines["int8"], params=params, clip_cfg=clip_cfg, bank=banks["int8"],
+                freq=freq)
+    return total, bank_counts, score_counts, stages, keep
 
 
 def tower_parts(engine):
@@ -1097,8 +1120,10 @@ def phase_rn50(card, inputs):
     if d_port > 1e-4:
         raise AssertionError("rn50: the fp32 tower ran in TF32")
     stages = stage_split("rn50:bf16", out["bf16"]["engine"], images, card)
+    keep = dict(engine=out["bf16"]["engine"], engine_fp32=out["fp32"]["engine"], params=params,
+                clip_cfg=cfg, bank=out["bf16"]["bank"], freq=freq)
     return ({k: out["bf16"]["bank_counts"][k] + out["bf16"]["counts"][k]
-             for k in out["bf16"]["counts"]}, out["bf16"]["bank_counts"], stages)
+             for k in out["bf16"]["counts"]}, out["bf16"]["bank_counts"], stages, keep)
 
 
 def phase_unfused_paths(card, inputs):
@@ -1638,6 +1663,535 @@ def phase_train(card, inputs):
                    for name, r in runs.items()}
 
 
+# ------------------------------ phase 7 --------------------------------------
+# the dump path, the bank CLI and the scoring service, on the engines of
+# phases 3 (ViT-B/16, TEST.PREC auto -> int8) and 5 (RN50, auto -> bf16)
+
+SERVICE_BATCH = 8          # the CLI's default batch (cli/eval.py, cli/serve.py)
+DUMP_IMAGES = 6 * SERVICE_BATCH  # six batches: four of them between start-up and drain
+PATHS_OF = {"vit": "int8", "rn": "plain"}  # each tower's auto path in PATH_KERNELS
+AUTO_PREC = {"vit": "int8", "rn": "bf16"}   # the engine precision TEST.PREC auto gives it
+BF16_UNIT = 2.0 ** -8      # a bf16 ulp of max(1, |x|), as bf16_tol counts it
+
+
+def within(out, ref, rel=1e-4):
+    """(max |out - ref|, whether it is within ``rel`` of max(1, max|ref|))."""
+    err = float(np.abs(np.asarray(out, np.float64) - ref).max())
+    return err, err <= rel * max(1.0, float(np.abs(ref).max()))
+
+
+def dump_path(tag, engine, paths, card):
+    """run_full_inference with save_dir (the dump path) against save_dir=None
+    (the fused path) on the same PNG files at the CLI's batch 8: one warm
+    batch of each, then three runs of each over every file, alternated. The
+    pickles' keys and shapes, cli.gen_final_ans on them against the fused
+    scores, run_batch against run_batch_multidispatch on one batch, the
+    launch counts of each timed dump run, both paths' crop-forwards/s
+    (median and range) and whether two dump passes pickle bitwise equal."""
+    from leclip_tpu_torch.cli import gen_final_ans
+    from leclip_tpu_torch.data.loader import load_image
+    from leclip_tpu_torch.inference.pipeline import run_full_inference
+    from leclip_tpu_torch.ops import launches
+
+    n, n_cls, batch = len(paths), 80, SERVICE_BATCH
+    n_batches = math.ceil(n / batch)
+    crops = n * (1 + engine.n_blocks)
+    tmp = os.path.dirname(paths[0])
+    for save in (None, os.path.join(tmp, f"{tag}_warm")):
+        run_full_inference(engine, paths[:batch], batch_size=batch, save_dir=save,
+                           progress=False)
+    secs = {"fused": [], "dump": []}
+    dumps, counts = [], []
+    for rep in range(3):
+        for path in ("fused", "dump"):
+            save = os.path.join(tmp, f"{tag}_{rep}") if path == "dump" else None
+            launches.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_full_inference(engine, paths, batch_size=batch, save_dir=save,
+                                     progress=False)
+            torch.cuda.synchronize()
+            secs[path].append(time.perf_counter() - t0)
+            if path == "dump":
+                counts.append(launches.launch_counts())
+                dumps.append(save)
+            else:
+                fused = out
+    for c in counts:
+        expect_launches(f"[dump:{tag}] run_full_inference(save_dir)", c, PATHS_OF[tag],
+                        12 * n_batches)
+    with open(os.path.join(dumps[-1], "data.pkl"), "rb") as f:
+        data = pickle.load(f)
+    with open(os.path.join(dumps[-1], "sim_matrix.pkl"), "rb") as f:
+        sims = pickle.load(f)
+    nb = engine.n_blocks
+    want = {"output": (n, n_cls), "output_pos": (n, n_cls), "output_blocks": (n, nb, n_cls),
+            "output_pos_blocks": (n, nb, n_cls), "output_final": (n, n_cls),
+            "output_pos_final": (n, n_cls)}
+    got = {name: {k: (v.shape, v.dtype) for k, v in outs.items()} for name, outs in data.items()}
+    ok = (list(data) == list(engine.models) and set(sims) == {"sims_all", "sims_blocks_all"}
+          and sims["sims_all"].shape == (n, engine.topk)
+          and sims["sims_blocks_all"].shape == (n, nb, engine.topk)
+          and all(got[m] == {k: (s, np.float32) for k, s in want.items()} for m in got))
+    if not ok:
+        raise AssertionError(f"[dump:{tag}] pickles: {got}, sims "
+                             f"{ {k: v.shape for k, v in sims.items()} }")
+    impreds = os.path.join(tmp, f"{tag}_impreds.json")
+    fused_cli = gen_final_ans.main(["--data", os.path.join(dumps[-1], "data.pkl"),
+                                    "--sim-matrix", os.path.join(dumps[-1], "sim_matrix.pkl"),
+                                    "--out", impreds])
+    back = np.asarray(json.load(open(impreds)))
+    err, good = within(fused_cli, fused)
+    log(f"[dump:{tag}] data.pkl: {len(data)} members x {list(want)} (blocks {want['output_blocks']}, "
+        f"finals {want['output_final']}); sim_matrix.pkl sims_blocks_all "
+        f"{sims['sims_blocks_all'].shape}; cli.gen_final_ans -> impreds.json {back.shape} against "
+        f"the fused path: max|d| {err:.4g} (<= 1e-4 of max(1, max|fused|) "
+        f"{np.abs(fused).max():.4g})")
+    if not (good and back.shape == (n, n_cls) and np.allclose(back, fused_cli)):
+        raise AssertionError(f"[dump:{tag}] gen_final_ans disagrees with the fused path")
+
+    images = [load_image(p) for p in paths[:batch]]
+    one, multi = engine.run_batch(images), engine.run_batch_multidispatch(images)
+    worst = max(within(one[m][k], multi[m][k]) for m in one for k in one[m])
+    log(f"[dump:{tag}] run_batch against run_batch_multidispatch, one batch of {batch}: "
+        f"max|d| {worst[0]:.4g} (<= 1e-4 of max(1, max|x|) in every key)")
+    if not all(within(one[m][k], multi[m][k])[1] for m in one for k in one[m]):
+        raise AssertionError(f"[dump:{tag}] run_batch disagrees with run_batch_multidispatch")
+
+    blobs = [open(os.path.join(d, "data.pkl"), "rb").read() for d in dumps[1:]]
+    runs = {p: sorted(crops / x for x in s) for p, s in secs.items()}
+    rate = {p: float(np.median(r)) for p, r in runs.items()}
+    log(f"[dump:{tag}] two dump passes' data.pkl bitwise equal on the card: "
+        f"{blobs[0] == blobs[1]} (reported, not required)")
+    log(f"[dump:{tag}] crop-forwards/s, {n} PNG files 480x640 in {n_batches} batches of "
+        f"{batch} ({crops} crops, decode included), three runs of each alternated in one call "
+        f"after a warm batch: dump path {rate['dump']:.1f} (runs {runs['dump'][0]:.1f}-"
+        f"{runs['dump'][-1]:.1f}), fused path {rate['fused']:.1f} (runs {runs['fused'][0]:.1f}-"
+        f"{runs['fused'][-1]:.1f}); dump/fused {rate['dump'] / rate['fused']:.3f} (median), "
+        f"{runs['dump'][0] / runs['fused'][-1]:.3f}-{runs['dump'][-1] / runs['fused'][0]:.3f} "
+        f"(range); seconds "
+        + ", ".join(f"{p} {[round(x, 4) for x in s]}" for p, s in secs.items())
+        + f" on {card}")
+    return dict(rate=rate, runs=runs, counts=counts[-1], bitwise=blobs[0] == blobs[1])
+
+
+def bank_cli(card, toks, tmp, backbone="RN50"):
+    """python -m leclip_tpu_torch.cli.build_caption_bank over the synthetic
+    captions written as a corpus (the loader's cached layout: tokens and
+    token-decided labels, as phase 6 builds its dataset), at each precision,
+    a fresh process each: the launch counts the CLI prints after its encode
+    (its process starts at 0); each CLI bank against build_caption_bank()
+    called here on the same tokens and weights (bitwise; these calls'
+    launches are not counted), bf16 and int8 rows against the default (fp32)
+    rows (cosine >= 0.995)."""
+    import argparse
+
+    from leclip_tpu_torch.cli.eval import load_clip
+    from leclip_tpu_torch.data.corpora import load_multi_label_corpus
+    from leclip_tpu_torch.data.labeling import CaptionLabeler
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.inference.pipeline import build_caption_bank
+
+    name = "synthetic_captions"
+    root = os.path.join(tmp, "generated_captions")
+    os.makedirs(root)
+    labels = caption_labels(toks)
+    with open(os.path.join(root, f"{name}_labels.pkl"), "wb") as f:
+        pickle.dump({i: row.tolist() for i, row in enumerate(labels)}, f)
+    with open(os.path.join(root, f"{name}_all_caption_tokenized.pkl"), "wb") as f:
+        pickle.dump(toks, f)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    banks, cli = {}, {}
+    for prec in ("default", "bf16", "int8"):
+        out = os.path.join(tmp, f"bank_{prec}.pkl")
+        cmd = [sys.executable, "-m", "leclip_tpu_torch.cli.build_caption_bank", "--backbone",
+               backbone, "--caption-root", root, "--corpora", name, "--out", out,
+               "--precision", prec, "--device", DEVICE.type]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+        whole = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"[bank-cli:{prec}] exit {run.returncode}:\n{run.stdout}\n"
+                                 f"{run.stderr}")
+        enc = re.search(r"encoded (\d+) captions in ([\d.]+) s", run.stdout)
+        launched = re.search(r"^kernel launches: (.*)$", run.stdout, re.M)
+        with open(out, "rb") as f:
+            banks[prec] = pickle.load(f)
+        cli[prec] = (whole, float(enc.group(2)), int(enc.group(1)), json.loads(launched.group(1)))
+
+    clip_cfg, params = load_clip(setup_config(), argparse.Namespace(weights="",
+                                                                    backbone=backbone), DEVICE)
+    tokens, _ = load_multi_label_corpus(root, name, CaptionLabeler())
+    if not np.array_equal(tokens, toks):
+        raise AssertionError("[bank-cli] the corpus did not read back as the written tokens")
+    n_pass = math.ceil(len(tokens) / 256)
+    counts, rows = {}, {}
+    for prec in ("default", "bf16", "int8"):
+        whole, enc_s, n, counts[prec] = cli[prec]
+        expect_launches(f"[bank-cli:{prec}] the CLI's process", counts[prec],
+                        "plain" if prec == "default" else prec, 12 * n_pass)
+        direct = build_caption_bank(params, clip_cfg, tokens, 256, precision=prec, device=DEVICE)
+        same = np.array_equal(banks[prec], direct)
+        cos = float((banks[prec] * banks["default"]).sum(-1).min())
+        rows[prec] = dict(whole=n / whole, encode=n / enc_s)
+        log(f"[bank-cli:{prec}] {backbone} bank {banks[prec].shape} of {n} captions: CLI bank "
+            f"bitwise equal to build_caption_bank() here: {same}; rows' min cosine to the "
+            f"default (fp32) bank {cos:.5f} (>= 0.995); kernels the CLI's process launched "
+            f"{counts[prec]}; captions/s: "
+            f"whole command {rows[prec]['whole']:.1f} ({whole:.3f} s: process start, weights, "
+            f"corpus, encode, write), encode alone {rows[prec]['encode']:.1f} ({enc_s:.3f} s) on "
+            f"{card}")
+        if not (same and banks[prec].shape == (len(toks), clip_cfg.embed_dim)
+                and np.isfinite(banks[prec]).all() and cos >= 0.995):
+            raise AssertionError(f"[bank-cli:{prec}] the CLI's bank disagrees")
+    return dict(rates=rows, counts=counts)
+
+
+def jpeg_blobs(n, gen_np):
+    """``n`` seeded 480x640 JPEGs (quality 90)."""
+    import io
+
+    from PIL import Image
+
+    out = []
+    for _ in range(n):
+        buf = io.BytesIO()
+        Image.fromarray(gen_np.integers(0, 255, (480, 640, 3)).astype(np.uint8)).save(
+            buf, format="JPEG", quality=90)
+        out.append(buf.getvalue())
+    return out
+
+
+SERVICE_REQUESTS = 128
+SERVICE_CLIENTS = 16
+SERVICE_WAIT_MS = 5.0     # the CLI's default micro-batch window
+SAME_BATCH_SAMPLE = 4     # dispatched batches recomputed a load (the same-batch check)
+# every answer against run_batch_fused of the same images in fixed batches of
+# 8. ViT int8: each within 1e-4 of max(1, max|ref|). RN50 bf16: an image's
+# scores move with its place in the batch (rn_batch_witness: ~2.5 bf16 ulps
+# with the batch reversed, none on the fp32 engine), and gated block fusion
+# turns such rounding into jumps, so they are held as §2 of PERF.md holds a
+# bf16 fused path against another route: correlation >= 0.999
+CROSS_BATCH = {"vit": ("max|d| / max(1, max|ref|) <=", 1e-4), "rn": ("correlation >=", 0.999)}
+
+
+def prometheus(url):
+    import urllib.request
+
+    with urllib.request.urlopen(f"{url}/metrics", timeout=60) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+def service_load(url, blobs, n_requests, clients, reload_after=None):
+    """``n_requests`` POSTs of one JPEG each from ``clients`` threads
+    (request i sends blob i mod len(blobs)); with ``reload_after``, one POST
+    /reload once that many answers are in. Returns a dict: seconds, scores
+    {i: row}, client-side latencies, errors, and the reload's answer with
+    the answers counted when it was sent and when it returned."""
+    import threading
+    import urllib.request
+
+    def post(path, data, ctype):
+        req = urllib.request.Request(f"{url}{path}", data=data, headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+
+    out = dict(scores={}, latency=[], errors=[], reload=None)
+    lock = threading.Lock()
+    ready = threading.Event()
+
+    def client(c):
+        for i in range(c, n_requests, clients):
+            t0 = time.perf_counter()
+            try:
+                row = np.asarray(post("/score", blobs[i % len(blobs)], "image/jpeg")["scores"][0])
+                with lock:
+                    out["scores"][i] = row
+                    out["latency"].append(time.perf_counter() - t0)
+                    if reload_after is not None and len(out["scores"]) >= reload_after:
+                        ready.set()
+            except Exception as e:  # noqa: BLE001 — counted and reported by the caller
+                with lock:
+                    out["errors"].append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if reload_after is not None:
+        ready.wait(timeout=600)
+        sent, r0 = len(out["scores"]), time.perf_counter()
+        answer = post("/reload", b"", "application/json")
+        out["reload"] = (answer, sent, len(out["scores"]), time.perf_counter() - r0)
+    for t in threads:
+        t.join(timeout=600)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def service(tag, keep, blobs, tmp, card):
+    """build_service (TEST.PREC auto, batch 8) from the engine's members
+    written as prompt checkpoints; a ThreadingHTTPServer on 127.0.0.1:0;
+    128 POSTs from 16 clients at the CLI's 5 ms micro-batch window (rate,
+    p50/p99 latency from /metrics, padding share, peak memory, launches),
+    then 128 more with one POST /reload in flight. Every dispatch of the
+    service's engines is recorded with its output. Three checks: every
+    answer is a row of a dispatched output for its image (fan-out and
+    order); a sample of the dispatched batches recomputed by
+    engine.run_batch_fused equals the service's output (same batch, 1e-4);
+    every answer against run_batch_fused of the same decoded images in
+    fixed batches of 8 (CROSS_BATCH)."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from leclip_tpu_torch.cli.serve import build_service, make_handler
+    from leclip_tpu_torch.data.loader import decode_bytes_batch
+    from leclip_tpu_torch.engine.checkpoint import save_prompt_params
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.ops import launches
+
+    model_dir = os.path.join(tmp, f"models_{tag}")
+    for name, spec in keep["engine"].models.items():
+        save_prompt_params(spec.trainable, model_dir, name)
+    cfg = setup_config(opts=["TEST.PREC", "auto", "TEST.multi_scale", "(2, 3, 4)",
+                             "TEST.use_freq", "True"], eval_only=True)
+    svc = build_service(cfg, keep["params"], keep["clip_cfg"], model_dir,
+                        caption_bank=keep["bank"], freq_stats=keep["freq"],
+                        batch_size=SERVICE_BATCH, max_wait_ms=SERVICE_WAIT_MS, device=DEVICE)
+    engine = svc.engine
+    if engine.precision != AUTO_PREC[tag] or list(engine.models) != list(keep["engine"].models):
+        raise AssertionError(f"[serve:{tag}] engine precision {engine.precision}, members "
+                             f"{list(engine.models)}")
+    images = decode_bytes_batch(blobs)
+    which = {im.tobytes(): j for j, im in enumerate(images)}
+    batches = [images[i: i + SERVICE_BATCH] for i in range(0, len(images), SERVICE_BATCH)]
+    ref = np.concatenate(list(engine.run_batches_fused_staged(iter(batches), depth=2)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    list(engine.run_batches_fused_staged(iter(batches * 2), depth=2))
+    torch.cuda.synchronize()
+    engine_ips = 2 * len(images) / (time.perf_counter() - t0)
+
+    dispatched = []  # (engine, the images of one dispatch, its output), in the worker's order
+
+    def recorded(eng):
+        real = eng.dispatch_batch_fused
+
+        def dispatch(batch):
+            out = real(batch)
+            dispatched.append((eng, list(batch), out))
+            return out
+
+        eng.dispatch_batch_fused = dispatch
+        return eng
+
+    recorded(engine)
+    factory = svc.engine_factory
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(
+        svc, topk=5, reload_fn=lambda: recorded(factory())))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        before = prometheus(url)
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset_launch_counts()
+        load = service_load(url, blobs, SERVICE_REQUESTS, SERVICE_CLIENTS)
+        load["counts"] = launches.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        load["dispatched"] = list(dispatched)
+        m = prometheus(url)
+        d = {k: m[k] - before[k] for k in m}
+        start = len(dispatched)
+        reload = service_load(url, blobs, SERVICE_REQUESTS, SERVICE_CLIENTS, reload_after=8)
+        reload["dispatched"] = dispatched[start:]
+        final = prometheus(url)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+
+    ok = health == {"status": "ok", "models": list(engine.models), "crops_per_image": 305}
+    worst = dict(fanout=0.0, same=0.0)
+    n_same = 0
+    answers, refs = [], []
+    for run in (load, reload):
+        rows = {}  # image -> the rows of the service's outputs that hold it
+        for eng, batch, out in run["dispatched"]:
+            for im, row in zip(batch, eng._fetch(out)):
+                rows.setdefault(which[im.tobytes()], []).append(row)
+        for i, row in run["scores"].items():
+            j = i % len(blobs)
+            fan = min((within(row, c) for c in rows.get(j, [])), default=(np.inf, False))
+            worst["fanout"] = max(worst["fanout"], fan[0])
+            ok &= fan[1]
+            answers.append(row)
+            refs.append(ref[j])
+        picks = np.unique(np.linspace(0, len(run["dispatched"]) - 1, SAME_BATCH_SAMPLE).round())
+        for k in picks.astype(int):
+            eng, batch, out = run["dispatched"][k]
+            same = within(eng._fetch(out), eng._fetch(type(eng).dispatch_batch_fused(eng, batch)))
+            worst["same"] = max(worst["same"], same[0])
+            ok &= same[1]
+            n_same += 1
+        ok &= not run["errors"] and len(run["scores"]) == SERVICE_REQUESTS
+    answers, refs = np.asarray(answers), np.asarray(refs)
+    scale = max(1.0, float(np.abs(refs).max()))
+    cross = dict(err=float(np.abs(answers - refs).max()),
+                 corr=float(np.corrcoef(answers.ravel(), refs.ravel())[0, 1]))
+    rule, bound = CROSS_BATCH[tag]
+    ok &= (cross["err"] <= bound * scale) if tag == "vit" else (cross["corr"] >= bound)
+    expect_launches(f"[serve:{tag}] load", load["counts"], PATHS_OF[tag],
+                    12 * int(d["leclip_dispatches_total"]))
+    pad = d["leclip_dispatch_padding_total"] / (d["leclip_dispatch_images_total"]
+                                                + d["leclip_dispatch_padding_total"])
+    lat = np.sort(load["latency"])
+    rate = SERVICE_REQUESTS / load["seconds"]
+    p50 = m['leclip_request_latency_seconds{quantile="0.5"}']
+    p99 = m['leclip_request_latency_seconds{quantile="0.99"}']
+    log(f"[serve:{tag}] {SERVICE_REQUESTS} POSTs of one 480x640 JPEG from {SERVICE_CLIENTS} "
+        f"clients, micro-batch window {SERVICE_WAIT_MS:g} ms: {load['seconds']:.3f} s = "
+        f"{rate:.2f} images/s ({rate / engine_ips:.3f} of the engine's {engine_ips:.2f} images/s "
+        f"alone at batch {SERVICE_BATCH}); {int(d['leclip_dispatches_total'])} dispatches, "
+        f"padding share {pad:.4f}; client latency p50 {lat[len(lat) // 2] * 1e3:.1f} ms, p99 "
+        f"{lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3:.1f} ms; launches "
+        f"{load['counts']} on {card}")
+    answer, sent, returned, reload_s = reload["reload"]
+    log(f"[serve:{tag}] build_service TEST.PREC auto -> {engine.precision}; /healthz {health}; "
+        f"{rate:.2f} images/s, /metrics p50 {p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms, requests "
+        f"{int(m['leclip_requests_total'])}, errors {int(m['leclip_request_errors_total'])}; peak "
+        f"memory over the load {peak / 2 ** 30:.2f} GiB ({(peak - base_mem) / 2 ** 30:.2f} GiB "
+        f"above the {base_mem / 2 ** 30:.2f} held before it); images/s / (engine crop-forwards/s "
+        f"/ 305) = {rate / engine_ips:.3f}")
+    log(f"[serve:{tag}] answers against the service's dispatched outputs (fan-out): max|d| "
+        f"{worst['fanout']:.4g} (<= 1e-4); {n_same} of "
+        f"{len(load['dispatched']) + len(reload['dispatched'])} dispatched batches recomputed by "
+        f"run_batch_fused (same batch): max|d| {worst['same']:.4g} (<= 1e-4); every answer "
+        f"against run_batch_fused of its image in fixed batches of {SERVICE_BATCH}: max|d| "
+        f"{cross['err']:.4g} ({cross['err'] / (BF16_UNIT * scale):.3g} bf16 ulps of max(1, "
+        f"max|ref|) {scale:.4g}), correlation {cross['corr']:.7f} (required: {rule} {bound:g}); "
+        f"POST /reload sent after {sent} answers of {SERVICE_REQUESTS}, "
+        f"returned after {returned} in {reload_s:.3f} s: {answer}; {len(reload['scores'])} "
+        f"answered, errors {len(reload['errors'])}; /metrics in all: requests "
+        f"{int(final['leclip_requests_total'])}, errors {int(final['leclip_request_errors_total'])}")
+    ok &= (m["leclip_requests_total"] == SERVICE_REQUESTS and m["leclip_request_errors_total"] == 0
+           and answer.get("reloaded") is True and returned < SERVICE_REQUESTS
+           and svc.engine is not engine and final["leclip_requests_total"] == 2 * SERVICE_REQUESTS
+           and final["leclip_request_errors_total"] == 0)
+    if not ok:
+        errors = load["errors"] + reload["errors"]
+        raise AssertionError(f"[serve:{tag}] failed: errors {errors[:3]}")
+    return dict(rate=rate, p50=p50, p99=p99, pad=pad, peak=peak / 2 ** 30,
+                engine_ips=engine_ips, counts=load["counts"], images=images)
+
+
+def rn_batch_witness(engines, images, card):
+    """Whether an RN50 image's scores depend on the batch it is scored in:
+    one batch of 8 decoded JPEGs scored again (run to run), reversed
+    (position), against another batch of 8 that shares four of its images
+    at other positions (company), and five images padded to 8 by repeating
+    the last, as the service pads, against the same five unpadded (batch
+    size); on the bf16 engine (cuDNN bf16 convolutions) and the fp32 one.
+    Reported, not required."""
+    a = images[:SERVICE_BATCH]
+    for prec, eng in engines.items():
+        base = eng.run_batch_fused(a)
+        again = eng.run_batch_fused(a)
+        rev = eng.run_batch_fused(a[::-1])[::-1]
+        other = eng.run_batch_fused(images[4: 4 + SERVICE_BATCH])
+        padded = eng.run_batch_fused(a[:5] + [a[4]] * 3)[:5]
+        alone = eng.run_batch_fused(a[:5])
+        ulp = BF16_UNIT * max(1.0, float(np.abs(base).max()))
+        d = {"again": np.abs(again - base).max(), "reversed": np.abs(rev - base).max(),
+             "other batch": np.abs(other[:4] - base[4:]).max(),
+             "padded 5 vs 5 alone": np.abs(padded - alone).max()}
+        log(f"[serve:rn] batch witness, RN50 {prec} engine (compute {eng.compute_dtype}), max|d| "
+            f"of the same images' scores: " + ", ".join(f"{k} {v:.4g} ({v / ulp:.3g} bf16 ulps)"
+                                                        for k, v in d.items())
+            + f" (a bf16 ulp of max(1, max|x|): {ulp:.4g}) on {card}")
+
+
+def decoder_probe():
+    """Whether the native JPEG decoder's toolchain exists here: g++, the
+    libjpeg header and library (a one-line program that includes jpeglib.h
+    and links -ljpeg). Information, not a check."""
+    import ctypes.util
+
+    gxx = shutil.which("g++")
+    found = "g++ missing"
+    if gxx:
+        with tempfile.TemporaryDirectory() as d:
+            src = os.path.join(d, "probe.cpp")
+            with open(src, "w") as f:
+                f.write("#include <cstdio>\n#include <jpeglib.h>\n"
+                        "int main() { jpeg_decompress_struct c; jpeg_std_error(nullptr);"
+                        " (void)c; return 0; }\n")
+            hdr = subprocess.run([gxx, "-fsyntax-only", src], capture_output=True, text=True)
+            link = subprocess.run([gxx, src, "-ljpeg", "-o", os.path.join(d, "probe")],
+                                  capture_output=True, text=True)
+            found = (f"jpeglib.h {'found' if hdr.returncode == 0 else 'missing'}, "
+                     f"-ljpeg links {'yes' if link.returncode == 0 else 'no'}")
+    log(f"[decoder] native JPEG decoder toolchain: g++ {gxx or 'missing'}; {found}; "
+        f"libjpeg.so* {ctypes.util.find_library('jpeg') or 'not found'} (information only)")
+
+
+def phase_dump_bank_service(card, inputs, vit, rn):
+    """Phase 7: the dump path on both engines, the bank CLI at three
+    precisions, the scoring service on both engines, the RN50 batch
+    witness, the decoder probe. Returns (launches of the dump runs, the
+    bank CLI's processes and the service loads, summed; per-part
+    results)."""
+    from PIL import Image
+
+    _, _, toks, _, images = inputs
+    gen_np = np.random.default_rng(70)
+    tmp = tempfile.mkdtemp(prefix="leclip_phase7_")
+    secs, res = {}, {}
+
+    def part(key, fn, *args):
+        t0 = time.perf_counter()
+        res[key] = fn(*args)
+        secs[key] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    try:
+        paths = []
+        extra = [gen_np.integers(0, 255, (480, 640, 3)).astype(np.uint8)
+                 for _ in range(DUMP_IMAGES - len(images))]
+        for i, im in enumerate(list(images) + extra):
+            paths.append(os.path.join(tmp, f"img{i}.png"))
+            Image.fromarray(im).save(paths[-1])
+        part("dump:vit", dump_path, "vit", vit["engine"], paths, card)
+        part("dump:rn", dump_path, "rn", rn["engine"], paths, card)
+        part("bank-cli", bank_cli, card, toks, tmp)
+        blobs = jpeg_blobs(SERVICE_CLIENTS, gen_np)
+        part("serve:vit", service, "vit", vit, blobs, tmp, card)
+        part("serve:rn", service, "rn", rn, blobs, tmp, card)
+        part("witness:rn", rn_batch_witness, {"bf16": rn["engine"], "fp32": rn["engine_fp32"]},
+             res["serve:rn"]["images"], card)
+        decoder_probe()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[phase7] {time.perf_counter() - t0:.1f} s in all: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    parts = [res["dump:vit"]["counts"], res["dump:rn"]["counts"], res["serve:vit"]["counts"],
+             res["serve:rn"]["counts"]] + list(res["bank-cli"]["counts"].values())
+    total = {k: sum(c[k] for c in parts) for k in parts[0]}
+    return total, res
+
+
 KERNEL_SOURCES = {  # name: (source, file:line of the TPU kernel, its precision path)
     "attn_block_bf16": ("leclip_tpu_torch/csrc/attn_block_bf16.cu",
                         "leclip_tpu/ops/block_kernels.py:122", "bf16"),
@@ -1704,11 +2258,16 @@ def main() -> int:
     kern_attn = phase_kernels_attention(fa, gen)
     launch_ms = phase_launch_times(card)
     inputs = main_inputs()
-    total, bank_counts, score_counts, _ = phase_main_paths(card, inputs)
+    total, bank_counts, score_counts, _, vit = phase_main_paths(card, inputs)
     total_attn, fp32_bank_counts, counts_a, counts_b = phase_unfused_paths(card, inputs)
     torch.cuda.empty_cache()
-    total_rn, rn_bank_counts, _ = phase_rn50(card, inputs)
+    total_rn, rn_bank_counts, _, rn = phase_rn50(card, inputs)
     for k, n in total_rn.items():
+        total[k] = total.get(k, 0) + n
+    # phase 7 runs on phases 3 and 5's engines, which are freed before phase 6
+    total7, _ = phase_dump_bank_service(card, inputs, vit, rn)
+    del vit, rn
+    for k, n in total7.items():
         total[k] = total.get(k, 0) + n
     torch.cuda.empty_cache()
     train_counts, _ = phase_train(card, inputs)
@@ -1736,6 +2295,7 @@ def main() -> int:
             "launches_bank": bank_counts[prec][k], "launches_scoring": score_counts[prec][k],
             **({"launches_rn50_bank": rn_bank_counts[k]} if prec == "bf16" else {}),
             "launches_train": train_counts[k],
+            "launches_phase7": total7[k],
             **({"device_ms": vit["device_ms"], "text_device_ms": text["device_ms"]}
                if "device_ms" in vit else {}),
             **({"launch_ms": launch_ms[k]} if k in launch_ms else {}),
@@ -1745,7 +2305,7 @@ def main() -> int:
         main_v = variants["vit fp32"]  # the shape and dtype the main path gives it
         line["kernels"].append({
             "name": k, "route": "cuda", "source": src, "headers": headers, "replaces": replaces,
-            "launches": total_attn[k],
+            "launches": total_attn[k] + total7[k],
             "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
             **{key: main_v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")},
@@ -1753,7 +2313,7 @@ def main() -> int:
                      "fp32",
             "variants": variants, "path": path,
             "launches_fp32_bank": fp32_bank_counts[k], "launches_path_a": counts_a[k],
-            "launches_path_b": counts_b[k],
+            "launches_path_b": counts_b[k], "launches_phase7": total7[k],
         })
     print(card, flush=True)
     print(json.dumps(line), flush=True)

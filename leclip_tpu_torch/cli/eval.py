@@ -12,7 +12,9 @@ Usage:
 Runs on the card; ``--device cpu`` runs it on the CPU explicitly. The
 precision follows ``TEST.PREC`` (engine/config.py resolve_test_precision):
 ``auto`` is int8 for a gate-validated ViT on the card and bf16 otherwise.
-The per-member dump (``--save-dir``) is not ported yet."""
+``--save-dir DIR`` takes the per-member dump path: ``DIR/data.pkl`` and
+``DIR/sim_matrix.pkl`` are written (``cli/gen_final_ans.py`` fuses them
+again later) and fused into the same ``impreds.json``."""
 
 from __future__ import annotations
 

@@ -1,9 +1,12 @@
 """Host-side data loading: the caption batcher of training and threaded image
 decode for evaluation (the port's own copy of ``CaptionBatcher``,
 ``load_image``, ``image_size`` and ``ImageBatcher`` in
-leclip_tpu/data/loader.py). PIL is imported when an image is read. The
-native libjpeg runtime of the JAX package is not ported; decoding uses a
-PIL thread pool."""
+leclip_tpu/data/loader.py), and the byte-level decoders of the scoring
+service (``decode_bytes_batch`` and ``declared_pixels``, after
+leclip_tpu/runtime/jpeg.py and cli/serve.py). PIL is imported when an image
+is read. The native libjpeg runtime of the JAX package is not ported yet
+(ROADMAP.md queue 1 item 5): decoding uses PIL, whose output that runtime is
+held equal to."""
 
 from __future__ import annotations
 
@@ -56,6 +59,32 @@ def load_image(path: str) -> np.ndarray:
             if attempt:
                 raise
     raise OSError(f"unreadable image {path}")
+
+
+def decode_bytes_batch(blobs: Sequence[bytes]) -> List[np.ndarray]:
+    """Decode in-memory images (JPEG, PNG, ...; the serving path: no
+    filesystem round trip) → list of uint8 RGB [H, W, 3] arrays."""
+    import io
+
+    from PIL import Image
+
+    out = []
+    for blob in blobs:
+        with Image.open(io.BytesIO(blob)) as im:
+            out.append(np.asarray(im.convert("RGB"), np.uint8))
+    return out
+
+
+def declared_pixels(blob: bytes) -> int:
+    """Width x height from the image header alone, without decoding: a
+    crafted JPEG declaring 60000x60000 would otherwise allocate ~10 GB."""
+    import io
+
+    from PIL import Image
+
+    with Image.open(io.BytesIO(blob)) as im:
+        w, h = im.size
+    return w * h
 
 
 def image_size(path: str) -> Tuple[int, int]:

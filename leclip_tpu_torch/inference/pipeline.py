@@ -2,14 +2,20 @@
 leclip_tpu/inference/pipeline.py): the six prompt checkpoints grouped as the
 reference's eval launcher groups them, scored over the multi-scale TTA
 pyramid with image features shared by all members, fused with fuse/fuse6 +
-per-class routing, and written as ``impreds.json``.
+per-class routing, and written as ``impreds.json``. With ``save_dir`` the
+per-member dumps (``data.pkl``) and the shared retrieval sims
+(``sim_matrix.pkl``) are written first and fused on the host, the
+reference's dump-then-fuse flow; ``cli/gen_final_ans.py`` fuses such dumps
+later.
 
-Not ported yet (ROADMAP.md): the per-member dump path (``save_dir``) and the
-device mesh."""
+Not ported yet (ROADMAP.md): the device mesh."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import os
+import pickle
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,11 +24,13 @@ from ..data.loader import ImageBatcher
 from ..device import resolve_device, tree_map
 from ..engine.checkpoint import load_prompt_params
 from ..engine.config import resolve_test_precision
+from ..engine.evaluator import MLClassificationEvaluator
 from ..models.clip import CLIPConfig
 from ..models.dense_clip import DenseFlags
 from ..models.prompt import build_prompt_learner
 from ..models.text import encode_text
-from ..ops.ensemble import normalized_cooccurrence, write_impreds
+from ..ops.ensemble import (DEFAULT_ROUTING, generate_final_answers, normalized_cooccurrence,
+                            write_impreds)
 from .tta import ModelSpec, TTAEngine, build_model_spec
 
 # the reference eval launcher's grouping: (names, use_evidence, use_freq, n_ctx)
@@ -31,10 +39,6 @@ DEFAULT_MODEL_GROUPS: Tuple[Tuple[Tuple[str, ...], bool, bool, Optional[int]], .
     (("zema", "diff", "diffh"), False, False, None),
     (("ema",), False, False, 64),
 )
-
-DUMP_PENDING = ("the per-member dump path (save_dir: data.pkl / sim_matrix.pkl) is not "
-                "ported yet (ROADMAP.md queue 1); run with save_dir=None")
-
 
 def bank_fuses(device, batch_size: int) -> bool:
     """Whether the bf16 caption bank runs the fused block kernels: on a CUDA
@@ -170,21 +174,70 @@ def make_engine(cfg, clip_params, clip_cfg, specs, caption_bank=None, freq_stats
 
 def run_full_inference(engine: TTAEngine, image_paths: Sequence[str], batch_size: int = 8,
                        save_dir: Optional[str] = None, out_json: Optional[str] = None,
-                       progress: bool = True) -> np.ndarray:
+                       routing=DEFAULT_ROUTING, progress: bool = True) -> np.ndarray:
     """TTA-score every image with every member and emit ``impreds.json``.
     Returns fused scores in the original ``image_paths`` order. Batches are
-    bucket-sorted; a producer thread decodes and uploads ahead of compute."""
-    if save_dir:
-        raise NotImplementedError(DUMP_PENDING)
-    batcher = ImageBatcher(image_paths, batch_size, sort_by_bucket=True)
-    parts = []
-    batches = (images for images, _ in batcher)
-    for bi, part in enumerate(engine.run_batches_fused_staged(batches, depth=2, stage_ahead=2)):
-        parts.append(part)
-        if progress:
-            print(f"TTA batch {bi + 1}/{len(batcher)} (fused, pipelined)")
-    fused = np.concatenate(parts)[batcher.inverse_order]
-    if out_json:
-        write_impreds(fused, out_json)
-    return fused
+    bucket-sorted.
 
+    ``save_dir=None``: the fused path, a producer thread decoding and
+    uploading ahead of compute. Any other value: the dump path, each batch
+    dispatched one ahead of the host copy of the one before; the dumps are
+    pickled to ``save_dir`` as ``data.pkl`` (per member: output, output_pos
+    [N, C], output_blocks, output_pos_blocks [N, n - 1, C], output_final,
+    output_pos_final [N, C]) and ``sim_matrix.pkl`` (sims_all [N, k],
+    sims_blocks_all [N, n - 1, k]) unless it is ``""``, then fused with
+    ``routing``."""
+    batcher = ImageBatcher(image_paths, batch_size, sort_by_bucket=True)
+    inv = batcher.inverse_order
+    if save_dir is None:
+        parts = []
+        batches = (images for images, _ in batcher)
+        for bi, part in enumerate(engine.run_batches_fused_staged(batches, depth=2,
+                                                                  stage_ahead=2)):
+            parts.append(part)
+            if progress:
+                print(f"TTA batch {bi + 1}/{len(batcher)} (fused, pipelined)")
+        fused = np.concatenate(parts)[inv]
+        if out_json:
+            write_impreds(fused, out_json)
+        return fused
+
+    acc: Dict[str, Dict[str, List[np.ndarray]]] = {}
+    sims_all, sims_blocks_all = [], []
+
+    def consume(handle, bi, n_images):
+        results = engine.finish_batch_dump(handle)
+        sims = results.pop("_sims")
+        sims_all.append(sims["sims_all"])
+        sims_blocks_all.append(sims["sims_blocks_all"])
+        for name, outs in results.items():
+            slot = acc.setdefault(name, {k: [] for k in outs})
+            for k, v in outs.items():
+                slot[k].append(v)
+        if progress:
+            print(f"TTA batch {bi + 1}/{len(batcher)} ({n_images} images)")
+
+    pending = deque()
+    for bi, (images, _) in enumerate(batcher):
+        pending.append((engine.dispatch_batch_dump(images), bi, len(images)))
+        if len(pending) >= 2:
+            consume(*pending.popleft())
+    while pending:
+        consume(*pending.popleft())
+
+    data = {name: {k: np.concatenate(v)[inv] for k, v in outs.items()}
+            for name, outs in acc.items()}
+    sims_blocks = np.concatenate(sims_blocks_all)[inv]
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+        with open(os.path.join(save_dir, "sim_matrix.pkl"), "wb") as f:
+            pickle.dump({"sims_all": np.concatenate(sims_all)[inv],
+                         "sims_blocks_all": sims_blocks}, f)
+        with open(os.path.join(save_dir, "data.pkl"), "wb") as f:
+            pickle.dump(data, f)
+
+    first = next(iter(data.values()))
+    MLClassificationEvaluator().process(first["output_final"],
+                                        np.zeros_like(first["output_final"]),
+                                        first["output_pos_final"])
+    return generate_final_answers(data, sims_blocks, routing=routing, out_path=out_json)

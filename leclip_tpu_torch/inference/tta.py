@@ -1,5 +1,5 @@
-"""Multi-scale TTA inference engine (counterpart of leclip_tpu/inference/tta.py),
-fused path.
+"""Multi-scale TTA inference engine (counterpart of leclip_tpu/inference/tta.py):
+the fused path and the per-member dump path.
 
 One pass per batch: uint8 images → 305 crops each (1 global + the 2/3/4
 pyramid) → matmul bicubic resize → CLIP normalise → image tower once for all
@@ -18,9 +18,15 @@ first member's ``DenseFlags.attention_impl``, as the JAX engine does: under
 "pallas" runs the flash-attention kernel in the image tower and (through
 ``build_model_spec``) in the prompt-feature text pass.
 
-Not ported yet (ROADMAP.md): the device mesh and ``shard_bank``, the
-per-member dump path (``run_batch`` / ``dispatch_batch_dump``) and the gather
-resizer."""
+The dump path (``run_batch`` = ``dispatch_batch_dump`` + ``finish_batch_dump``)
+shares the fused path's crops, image tower and retrieval, and returns every
+member's raw global/local/block scores and block aggregates with the shared
+retrieval sims, the dict that ``ops/ensemble.generate_final_answers`` fuses
+(the reference's dump-then-fuse flow). ``run_batch_multidispatch`` is its
+independently built check.
+
+Not ported yet (ROADMAP.md): the device mesh and ``shard_bank``, and the
+gather resizer."""
 
 from __future__ import annotations
 
@@ -42,7 +48,8 @@ from ..models.dense_clip import (
     test_logits_from_features,
 )
 from ..ops.crops import tta_sampling_boxes
-from ..ops.ensemble import DEFAULT_ROUTING, adjust_predictions, fuse, fuse6, routing_vector
+from ..ops.ensemble import (DEFAULT_ROUTING, adjust_predictions, aggregate_blocks, fuse, fuse6,
+                            routing_vector)
 from ..ops.preprocess import clip_normalize
 from ..ops.resize_matmul import crop_and_resize_matmul, crop_and_resize_matmul_batch
 
@@ -266,22 +273,40 @@ class TTAEngine:
         n = feats.global_feat.shape[0]
         return feats.global_feat, torch.zeros((n, self.topk), device=self.device)
 
+    def _image_pass(self, staged: Staged):
+        """crops → image tower → retrieval of a staged batch: (image
+        features, augmented global features, top-k scores), shared by the
+        fused and the dump path."""
+        crops = self._crops(staged)
+        feats = self._features(crops.reshape((-1,) + crops.shape[2:]))
+        return (feats,) + tuple(self._retrieve(feats))
+
+    def _group_logits(self, feats, aug, scores, b: int, n: int):
+        """Per member group: (names, global and local logits [m, b, n, C] in
+        fp32), the local ones co-occurrence-adjusted where the group uses
+        frequencies. fp32 before any fusion, so fuse6's variances of bf16
+        logits are not rounded to bf16 and both paths fuse the same values."""
+        for names, flags, g_use_freq, tr, tf in self._model_groups():
+            out = test_logits_from_features(tr, tf, feats, flags,
+                                            precomputed_retrieval=(aug, scores))
+            m = len(names)
+            g = out.logits_global.reshape(m, b, n, -1).float()
+            loc = out.logits_local.reshape(m, b, n, -1).float()
+            if g_use_freq:
+                loc = adjust_predictions(loc, self.cooccurrence)
+            yield names, g, loc
+
     def _score(self, feats, aug, scores, b: int, n: int) -> torch.Tensor:
         """Every member's global/local logits, fuse/fuse6 block fusion and
-        the per-class routing → fused [B, C]."""
-        groups = self._model_groups()
+        the per-class routing → fused [B, C]. Fuses fp32 logits, as the dump
+        path's host fusion does; JAX's ``_fused_fn`` fuses in the compute
+        dtype (a departure of up to ~1e-3 on a bf16 engine). Reads
+        ``self._routing``, which ``_model_groups`` has built."""
         base, routing = self._routing
         coef = 1.5
         sims_blocks = scores.reshape(b, n, -1)[:, 1:]
         results = []
-        for names, flags, g_use_freq, tr, tf in groups:
-            out = test_logits_from_features(tr, tf, feats, flags,
-                                            precomputed_retrieval=(aug, scores))
-            m = len(names)
-            g = out.logits_global.reshape(m, b, n, -1)
-            loc = out.logits_local.reshape(m, b, n, -1)
-            if g_use_freq:
-                loc = adjust_predictions(loc, self.cooccurrence)
+        for names, g, loc in self._group_logits(feats, aug, scores, b, n):
             for mi, name in enumerate(names):
                 use6 = name == base
                 f = fuse6 if use6 else fuse
@@ -298,9 +323,7 @@ class TTAEngine:
         crops → image tower → retrieval → members, fusion and routing."""
         self._model_groups()
         with torch.inference_mode():
-            crops = self._crops(staged)
-            feats = self._features(crops.reshape((-1,) + crops.shape[2:]))
-            aug, scores = self._retrieve(feats)
+            feats, aug, scores = self._image_pass(staged)
             return self._score(feats, aug, scores, staged.batch, staged.n_boxes)
 
     def dispatch_batch_fused(self, images: Sequence[np.ndarray]) -> torch.Tensor:
@@ -314,6 +337,137 @@ class TTAEngine:
         """Competition scoring of one batch → fused [B, n_cls] (the
         impreds.json numbers)."""
         return self._fetch(self.dispatch_batch_fused(images))
+
+    # ------------------------------ dump path -------------------------------
+
+    def _dump_flat(self, feats, aug, scores, b: int, n: int) -> torch.Tensor:
+        """Every group's fp32 logits (:meth:`_group_logits`), their block
+        aggregates [m, b, C] and the retrieval sims [b, n, k], flattened into
+        one fp32 buffer: one device→host copy a batch."""
+        parts = []
+        for names, g, loc in self._group_logits(feats, aug, scores, b, n):
+            m = len(names)
+            finals = [aggregate_blocks(x[:, :, 1:].reshape(m * b, n - 1, -1),
+                                       self.block_threshold, self.block_coef,
+                                       base=x[:, :, 0].reshape(m * b, -1))
+                      for x in (g, loc)]
+            parts += [g, loc] + finals
+        parts.append(scores.reshape(b, n, -1).float())
+        return torch.cat([p.reshape(-1) for p in parts])
+
+    def dispatch_batch_dump(self, images: Sequence[np.ndarray]):
+        """Queue the dump pass of one batch without synchronising: returns a
+        handle for :meth:`finish_batch_dump`. On the card the flat buffer's
+        copy to pinned host memory is queued right behind the batch's
+        kernels, with an event after it: finishing batch i then waits for
+        batch i's copy only, not for batch i+1, which the caller has queued
+        since, so the host's next decode overlaps batch i+1's compute."""
+        staged = self.stage_batch_fused(images)
+        self._model_groups()
+        with torch.inference_mode():
+            feats, aug, scores = self._image_pass(staged)
+            flat = self._dump_flat(feats, aug, scores, staged.batch, staged.n_boxes)
+            done = None
+            if flat.is_cuda:
+                host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+                flat = host.copy_(flat, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+        return flat, done, staged.batch, staged.n_boxes
+
+    def finish_batch_dump(self, handle) -> Dict[str, dict]:
+        """Wait for a :meth:`dispatch_batch_dump` handle's copy to the host
+        (the one synchronisation) and unpack it into the per-member dump dict: output /
+        output_pos [b, C], output_blocks / output_pos_blocks [b, n - 1, C],
+        output_final / output_pos_final [b, C], and ``"_sims"`` with
+        sims_all [b, k] and sims_blocks_all [b, n - 1, k]; numpy fp32."""
+        flat, done, b, n = handle
+        if done is not None:
+            done.synchronize()
+        # a copy, so the pinned block goes back to the allocator's cache
+        flat = flat.numpy().copy()
+        n_cls = next(iter(self.models.values())).text_feats["pos"].shape[0]
+        off = 0
+
+        def take(shape):
+            nonlocal off
+            size = int(np.prod(shape))
+            out = flat[off: off + size].reshape(shape)
+            off += size
+            return out
+
+        per_model = {}
+        for names, *_ in self._model_groups():
+            m = len(names)
+            g, loc = take((m, b, n, n_cls)), take((m, b, n, n_cls))
+            g_final, l_final = take((m, b, n_cls)), take((m, b, n_cls))
+            for mi, name in enumerate(names):
+                per_model[name] = (g[mi], loc[mi], g_final[mi], l_final[mi])
+        sims = take((b, n, self.topk))
+        assert off == flat.size
+        results: Dict[str, dict] = {}
+        for name in self.models:
+            g, loc, g_final, l_final = per_model[name]
+            results[name] = {
+                "output": g[:, 0],
+                "output_pos": loc[:, 0],
+                "output_blocks": g[:, 1:],
+                "output_pos_blocks": loc[:, 1:],
+                "output_final": g_final,
+                "output_pos_final": l_final,
+            }
+        results["_sims"] = {"sims_all": sims[:, 0], "sims_blocks_all": sims[:, 1:]}
+        return results
+
+    def run_batch(self, images: Sequence[np.ndarray]) -> Dict[str, dict]:
+        """The dump pass of one batch → per-member raw score dict + the
+        shared retrieval sims (see :meth:`finish_batch_dump`)."""
+        return self.finish_batch_dump(self.dispatch_batch_dump(images))
+
+    def _score_group(self, flags, trainables, text_feats, feats, aug, scores):
+        """One member group's test logits, members on the leading axis."""
+        return test_logits_from_features(trainables, text_feats, feats, flags,
+                                         precomputed_retrieval=(aug, scores))
+
+    def run_batch_multidispatch(self, images: Sequence[np.ndarray]) -> Dict[str, dict]:
+        """The dump dict built another way: the features pass, then one
+        scoring pass per member group fetched to the host, and the
+        co-occurrence adjustment and block aggregation on the host per member
+        — the independent check of :meth:`run_batch`."""
+        staged = self.stage_batch_fused(images)
+        b, n = staged.batch, staged.n_boxes
+        with torch.inference_mode():
+            feats, aug, scores = self._image_pass(staged)
+            per_model = {}
+            for names, flags, _, tr, tf in self._model_groups():
+                out = self._score_group(flags, tr, tf, feats, aug, scores)
+                g_all, l_all = self._fetch(out.logits_global), self._fetch(out.logits_local)
+                for mi, name in enumerate(names):
+                    per_model[name] = (g_all[mi], l_all[mi])
+            sims = self._fetch(scores).reshape(b, n, -1)
+        cooc = None if self.cooccurrence is None else self.cooccurrence.float().cpu()
+        results: Dict[str, dict] = {}
+        for name in self.models:
+            g_flat, l_flat = per_model[name]
+            g, loc = g_flat.reshape(b, n, -1), l_flat.reshape(b, n, -1)
+            if self._member_use_freq(self.models[name]):
+                loc = adjust_predictions(torch.from_numpy(loc), cooc).numpy()
+            output, output_blocks = g[:, 0], g[:, 1:]
+            output_pos, output_pos_blocks = loc[:, 0], loc[:, 1:]
+            finals = [aggregate_blocks(torch.from_numpy(blocks), self.block_threshold,
+                                       self.block_coef, base=torch.from_numpy(base)).numpy()
+                      for blocks, base in ((output_blocks, output),
+                                           (output_pos_blocks, output_pos))]
+            results[name] = {
+                "output": output,
+                "output_pos": output_pos,
+                "output_blocks": output_blocks,
+                "output_pos_blocks": output_pos_blocks,
+                "output_final": finals[0],
+                "output_pos_final": finals[1],
+            }
+        results["_sims"] = {"sims_all": sims[:, 0], "sims_blocks_all": sims[:, 1:]}
+        return results
 
     def run_batches_fused(self, batches, depth: int = 2):
         """Fused scoring over an iterable of image lists, ``depth`` batches

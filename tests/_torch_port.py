@@ -129,6 +129,18 @@ def tta_ensemble(dtype, cfg, classes, groups, attention_impl="auto", jp=None):
     return jp, tp, jspecs, tspecs, bank, cooc
 
 
+def tta_engines(cfg, classes, groups):
+    """Both packages' fp32 TTAEngines (the port's on the CPU) over
+    :func:`tta_ensemble`'s members, bank and co-occurrence: scales (2,),
+    top-5 retrieval. Returns (jax engine, port engine)."""
+    jp, tp, jspecs, tspecs, bank, cooc = tta_ensemble("fp32", cfg, classes, groups)
+    kw = dict(scales=(2,), cooccurrence=cooc, crop_size=cfg.image_resolution, topk=5)
+    return (jtta.TTAEngine(jp, cfg, jspecs, caption_bank=jnp.asarray(bank),
+                           compute_dtype=jnp.float32, **kw),
+            ttta.TTAEngine(tp, cfg, tspecs, caption_bank=torch.tensor(bank),
+                           compute_dtype=torch.float32, device="cpu", **kw))
+
+
 def random_bn(tree, seed: int):
     """A JAX ResNet tree with every batch norm's statistics and affine drawn
     at random (the JAX init zeroes each bn3 scale, which would leave every

@@ -510,3 +510,67 @@ def test_train_step_on_card_launches_its_caption_kernels(card, prec):
     assert counts == want
     assert np.isfinite(float(aux["loss"])) and state.step == 1
     assert all(v.grad_fn is None and torch.isfinite(v).all() for v in state.params.values())
+
+
+# engine precision: (TTAEngine options, the image tower's kernels per layer)
+DUMP_ROUTES = {
+    "bf16": (dict(precision="bf16", bf16_fused=True), {"attn_block_bf16": 1, "mlp_bf16": 1}),
+    "int8": (dict(precision="int8"), {"attn_block_int8": 1, "mlp_int8": 1, "ln_quant": 2}),
+}
+
+
+@pytest.mark.parametrize("prec", list(DUMP_ROUTES))
+def test_dump_path_on_card_matches_fused_path(card, prec):
+    """The per-member dump path of a small ViT (2 layers x 128, two members,
+    one with co-occurrence, a caption bank) on the card, its image tower
+    through the bf16 block kernels or the int8 kernels: the host fusion of
+    its dumps equals the fused path within 1e-4 of max(1, max|fused|) (both
+    fuse the same fp32 logits, in another order), run_batch equals
+    run_batch_multidispatch within 1e-5, and each pass launches its route's
+    kernels once a layer."""
+    import numpy as np
+
+    from leclip_tpu_torch.inference.tta import TTAEngine, build_model_spec
+    from leclip_tpu_torch.models.clip import CLIPConfig, init_clip_params
+    from leclip_tpu_torch.models.dense_clip import DenseFlags
+    from leclip_tpu_torch.models.prompt import build_prompt_learner
+    from leclip_tpu_torch.ops import launches
+    from leclip_tpu_torch.ops.ensemble import generate_final_answers
+
+    cfg = CLIPConfig(64, 64, 2, 128, 16, transformer_width=128, transformer_heads=2,
+                     transformer_layers=2)
+    g = torch.Generator(device=card).manual_seed(0)
+    params = init_clip_params(g, cfg, dtype=torch.bfloat16, device=card)
+    classes = ["dog", "cat", "person", "pizza", "car", "bus"]
+    specs = {}
+    for name, evd, use_freq in (("best", True, True), ("ema", False, False)):
+        tr, consts = build_prompt_learner(g, params, classes, n_ctx=4, dtype=torch.bfloat16)
+        specs[name] = build_model_spec(params, cfg, tr, consts, DenseFlags(use_evidence=evd),
+                                       use_freq=use_freq)
+    rng = np.random.default_rng(0)
+    bank = rng.standard_normal((64, 64)).astype(np.float32)
+    bank /= np.linalg.norm(bank, axis=-1, keepdims=True)
+    cooc = rng.random((6, 6)).astype(np.float32)
+    cooc /= cooc.sum(-1, keepdims=True)
+    opts, per_layer = DUMP_ROUTES[prec]
+    engine = TTAEngine(params, cfg, specs, scales=(2,), crop_size=64,
+                       caption_bank=torch.tensor(bank), cooccurrence=cooc, topk=5,
+                       compute_dtype=torch.bfloat16, device=card, **opts)
+    images = [rng.integers(0, 255, (72, 96, 3)).astype(np.uint8) for _ in range(2)]
+    fused = engine.run_batch_fused(images)
+    launches.reset_launch_counts()
+    dumps = engine.run_batch(images)
+    counts = launches.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update({k: 2 * n for k, n in per_layer.items()})
+    assert counts == want
+    slow = engine.run_batch_multidispatch(images)
+    for name in dumps:
+        for k, v in dumps[name].items():
+            assert v.dtype == np.float32 and np.isfinite(v).all()
+            np.testing.assert_allclose(v, slow[name][k], rtol=1e-5, atol=1e-5,
+                                       err_msg=f"{name}/{k}")
+    sims = dumps.pop("_sims")
+    host = generate_final_answers(dumps, sims["sims_blocks_all"])
+    assert host.shape == fused.shape == (2, 6)
+    assert np.abs(host - fused).max() <= 1e-4 * max(1.0, np.abs(fused).max())

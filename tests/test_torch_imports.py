@@ -19,6 +19,10 @@ TRAINING = ("utils/registry.py", "utils/logging.py", "utils/tb_events.py",
             "data/labeling.py", "data/corpora.py", "data/datasets.py", "ops/losses.py",
             "engine/train_state.py", "engine/flax_msgpack.py", "engine/checkpoint.py",
             "engine/trainer.py", "cli/train.py")
+# the dump path's, the offline CLIs' and the scoring service's modules
+DUMP_AND_SERVING = ("inference/tta.py", "inference/pipeline.py", "data/loader.py",
+                    "cli/eval.py", "cli/gen_final_ans.py", "cli/parse_results.py",
+                    "cli/build_caption_bank.py", "cli/serve.py")
 
 
 def _port_files():
@@ -62,7 +66,9 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from leclip_tpu_torch.cli.build_caption_bank import main as bank_main
     from leclip_tpu_torch.cli.eval import main as eval_main
+    from leclip_tpu_torch.cli.serve import build_service, main as serve_main
     from leclip_tpu_torch.device import resolve_device
     from leclip_tpu_torch.engine.config import setup_config
     from leclip_tpu_torch.inference.pipeline import build_caption_bank, make_engine
@@ -81,6 +87,12 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: make_engine(setup_config(), params, cfg, {}),
         lambda: eval_main(["--backbone", "ViT-TEST", "--model-dir", str(tmp_path)]),
         lambda: eval_main(["--backbone", "RN-TEST", "--model-dir", str(tmp_path)]),
+        lambda: eval_main(["--backbone", "ViT-TEST", "--model-dir", str(tmp_path),
+                           "--save-dir", str(tmp_path / "dumps")]),
+        lambda: build_service(setup_config(), params, cfg, str(tmp_path)),
+        lambda: bank_main(["--backbone", "ViT-TEST", "--caption-root", str(tmp_path),
+                           "--corpora", "none"]),
+        lambda: serve_main(["--backbone", "ViT-TEST", "--model-dir", str(tmp_path)]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -95,6 +107,16 @@ def test_training_modules_are_scanned_and_import_alone():
 
     files = _port_files()
     for rel in TRAINING:
+        path = os.path.join(ROOT, "leclip_tpu_torch", rel)
+        assert path in files, rel
+        importlib.import_module("leclip_tpu_torch." + rel[:-3].replace("/", "."))
+
+
+def test_dump_and_serving_modules_are_scanned_and_import_alone():
+    import importlib
+
+    files = _port_files()
+    for rel in DUMP_AND_SERVING:
         path = os.path.join(ROOT, "leclip_tpu_torch", rel)
         assert path in files, rel
         importlib.import_module("leclip_tpu_torch." + rel[:-3].replace("/", "."))

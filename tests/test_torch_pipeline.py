@@ -129,14 +129,18 @@ def test_run_full_inference_and_cli_match_jax(workspace):
 
 
 def test_pending_options_raise(workspace):
-    """What is still to port raises; int8 no longer does (it resolves, and on
-    the CPU degrades to bf16 with a warning)."""
+    """What is still to port raises: the int8 engine of a ResNet tower (the
+    per-member dump path, ``save_dir``, no longer does: tests/test_torch_dump.py);
+    int8 no longer does either (it resolves, and on the CPU degrades to bf16
+    with a warning)."""
+    from leclip_tpu_torch.inference.tta import TTAEngine
+
     assert resolve_test_precision("auto", CFG, "cpu") == "bf16"
     assert resolve_test_precision("fp32", CFG, "cpu") == "fp32"
     with pytest.warns(UserWarning, match="falling back to bf16"):
         assert resolve_test_precision("int8", CFG, "cpu") == "bf16"
-    with pytest.raises(NotImplementedError, match="dump path"):
-        tpipe.run_full_inference(None, [], save_dir=str(workspace / "dumps"))
+    with pytest.raises(ValueError, match="ViT backbones only"):
+        TTAEngine({}, jclip.PRESETS["RN-TEST"], {}, precision="int8", device="cpu")
 
 
 def test_prompt_checkpoint_formats(tmp_path):
