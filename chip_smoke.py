@@ -87,8 +87,25 @@ Phases (any failure exits non-zero and prints no result line):
      of engine.run_batch_fused, /healthz 305 crops, /metrics 128 requests
      and no error; images/s, p50/p99 latency, padding share, peak memory;
      128 more at a 50 ms micro-batch window (reported); then 128 more with
-     one POST /reload in flight; and one line on whether
+     one POST /reload in flight; the RN50 batch witness, also split by
+     stage (crops, trunk, pool, dense projection, scores) under each
+     setting tried against it; and one line on whether
      the native JPEG decoder's toolchain (g++, jpeglib.h, libjpeg) exists.
+  8. after phase 6, on its fp32 trainer: the native JPEG decoder (what the
+     probe finds, its build from runtime/, 64 JPEGs 480x640 bitwise equal to
+     PIL with none sent to PIL, images/s against PIL); trainer.validate()
+     with an RN50 image tower over 64 val images at 305 crops, and a
+     ViT-B/16 trainer of 2 steps validated on 16 images (resident_attention
+     in every layer), each against run_batch of a freshly built one-member
+     engine; the adapter trainer (fp32, bf16, int8 captions; frozen and
+     trainable; 16 steps each: falling loss, launches, a resumed step, the
+     first-step prompt gradient against the CPU port); the five other
+     optimizers (8 steps against the CPU port, the card's checkpoint read
+     back bitwise); a TRAIN.profile_dir window whose trace names the block
+     kernels; the zero-shot CLI in a fresh process for RN50 and ViT-B/16
+     against attention_impl="xla"; score_caption_benchmark over 1,024
+     captions and six members, bf16 against fp32 and fp32 against the CPU
+     port.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 
@@ -1660,7 +1677,8 @@ def phase_train(card, inputs):
         shutil.rmtree(tmp, ignore_errors=True)
     total = {k: sum(r["counts"][k] for r in runs.values()) for k in ref["counts"]}
     return total, {name: {key: r[key] for key in ("secs", "steps", "split", "peak")}
-                   for name, r in runs.items()}
+                   for name, r in runs.items()}, dict(trainer=ref["trainer"], text=text,
+                                                      clip_cfg=clip_cfg, dataset=dataset)
 
 
 # ------------------------------ phase 7 --------------------------------------
@@ -2123,6 +2141,59 @@ def rn_batch_witness(engines, images, card):
             + f" (a bf16 ulp of max(1, max|x|): {ulp:.4g}) on {card}")
 
 
+# the settings tried against the RN50 batch movement: (module, flag, value)
+WITNESS_SETTINGS = {
+    "defaults": [],
+    "matmul bf16 reduced-precision reduction off": [
+        (torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction", False)],
+    "cudnn deterministic": [(torch.backends.cudnn, "deterministic", True)],
+}
+
+
+def rn_witness_stages(engine, images, card):
+    """The RN50 batch witness split by stage: one batch of 8 images scored
+    as given and reversed, each stage of the engine's own pass (crops after
+    resize + normalise, the trunk map, the pool's global feature, the dense
+    projection, the fused scores) compared image for image, under the
+    defaults and under each setting of WITNESS_SETTINGS. Reported, not
+    required. Returns {setting: {stage: max|d|}}."""
+    stem, head = tower_parts(engine)
+    a = images[:SERVICE_BATCH]
+
+    def stages(batch):
+        b = len(batch)
+        engine._model_groups()  # builds the routing _score reads
+        with torch.inference_mode():
+            staged = engine.stage_batch_fused(batch)
+            crops = engine._crops(staged)
+            trunk = stem(crops.reshape((-1,) + crops.shape[2:]))
+            feats = head(trunk)
+            aug, scores = engine._retrieve(feats)
+            fused = engine._score(feats, aug, scores, staged.batch, staged.n_boxes)
+        per_image = lambda t: t.reshape((b, -1) + tuple(t.shape[1:])).float()  # noqa: E731
+        return {"crops": per_image(crops), "trunk": per_image(trunk),
+                "pool (global)": per_image(feats.global_feat),
+                "dense projection": per_image(feats.spatial_feats), "scores": fused.float()}
+
+    out = {}
+    for name, flags in WITNESS_SETTINGS.items():
+        saved = [(mod, flag, getattr(mod, flag)) for mod, flag, _ in flags]
+        try:
+            for mod, flag, value in flags:
+                setattr(mod, flag, value)
+            given, rev = stages(a), stages(a[::-1])
+        finally:
+            for mod, flag, value in saved:
+                setattr(mod, flag, value)
+        out[name] = {k: (given[k] - rev[k].flip(0)).abs().max().item() for k in given}
+        ulp = BF16_UNIT * max(1.0, given["scores"].abs().max().item())
+        log(f"[serve:rn] batch witness by stage, RN50 {str(engine.compute_dtype).split('.')[-1]} "
+            f"engine, batch of {len(a)} as given against reversed, {name}: max|d| "
+            + ", ".join(f"{k} {v:.4g}" for k, v in out[name].items())
+            + f" (scores: {out[name]['scores'] / ulp:.3g} bf16 ulps of max(1, max|x|)) on {card}")
+    return out
+
+
 def decoder_probe():
     """Whether the native JPEG decoder's toolchain exists here: g++, the
     libjpeg header and library (a one-line program that includes jpeglib.h
@@ -2181,6 +2252,8 @@ def phase_dump_bank_service(card, inputs, vit, rn):
         part("serve:rn", service, "rn", rn, blobs, tmp, card)
         part("witness:rn", rn_batch_witness, {"bf16": rn["engine"], "fp32": rn["engine_fp32"]},
              res["serve:rn"]["images"], card)
+        part("witness-stages:rn", rn_witness_stages, rn["engine"], res["serve:rn"]["images"],
+             card)
         decoder_probe()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2190,6 +2263,555 @@ def phase_dump_bank_service(card, inputs, vit, rn):
              res["serve:rn"]["counts"]] + list(res["bank-cli"]["counts"].values())
     total = {k: sum(c[k] for c in parts) for k in parts[0]}
     return total, res
+
+
+# ------------------------------ phase 8 --------------------------------------
+# the rest of the training flow and the scoring entry points on the card:
+# the trainer's image-split validate, the adapter trainer, the optimizer
+# menu, the profiler window, the native JPEG decoder, the zero-shot CLI and
+# the caption benchmark
+
+FLOW_IMAGES = 64           # JPEGs 480x640 written by the phase (phase 7's size)
+VIT_VAL_IMAGES = 16
+ADAPTER_RUNS = {  # run: (trainer options, its caption branch's path in PATH_KERNELS)
+    "fp32": ([], "plain"),
+    "bf16": (["TRAINER.PREC", "bf16"], "bf16"),
+    "int8": (["TRAIN.int8_captions", "True"], "int8"),
+}
+OPTIMIZERS = ("adam", "amsgrad", "adamw", "rmsprop", "radam")
+ZEROSHOT_BACKBONES = (("RN50", "plain"), ("ViT-B/16", "fp32"))  # (backbone, its path)
+GRAD_CPU_CAPTIONS = 64     # the first step's captions held against the CPU port
+CAPTION_EVAL_ROWS = 1024
+CAPTION_EVAL_CPU_ROWS = 64
+
+
+def decoder_check(paths, card):
+    """The native JPEG decoder on this machine: what the probe finds (the
+    glob over pillow.libs and the system, ctypes' find_library), the build
+    and ABI check, every JPEG native and bitwise PIL's, no JPEG to PIL, and
+    images/s native (8 threads) against PIL (one thread; eight threads)."""
+    import concurrent.futures
+    import ctypes.util
+
+    from PIL import Image
+
+    from leclip_tpu_torch.runtime import jpeg
+
+    cands = jpeg.libjpeg_candidates()
+    log(f"[decoder] probe: libjpeg*.so.62* by glob (pillow.libs, then the system's): "
+        f"{cands or 'none'}; ctypes.util.find_library('jpeg'): "
+        f"{ctypes.util.find_library('jpeg') or 'not found'}; g++ {shutil.which('g++') or 'missing'}")
+    t0 = time.perf_counter()
+    if not jpeg.native_available():
+        raise AssertionError(f"[decoder] the native decoder did not load: {jpeg.failure()}")
+    build_s = time.perf_counter() - t0
+    pil = lambda p: np.asarray(Image.open(p).convert("RGB"))  # noqa: E731
+    jpeg.reset_decode_counts()
+    native = jpeg.decode_batch(paths, threads=8)
+    counts = jpeg.decode_counts()
+    same = all(np.array_equal(a, pil(p)) for a, p in zip(native, paths))
+    rates = {}
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        for name, fn in (("native, 8 threads", lambda: jpeg.decode_batch(paths, threads=8)),
+                         ("PIL, one thread", lambda: [pil(p) for p in paths]),
+                         ("PIL, 8 threads", lambda: list(pool.map(pil, paths)))):
+            took = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                took.append(time.perf_counter() - t0)
+            rates[name] = len(paths) / float(np.median(took))
+    log(f"[decoder] native decoder built and loaded in {build_s:.2f} s "
+        f"({os.path.basename(jpeg.load()._name)}); {len(paths)} JPEGs 480x640: bitwise equal to "
+        f"PIL: {same}; decoders {counts} (PIL's JPEGs must be 0); images/s (median of 3): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()) + f" on {card}")
+    if not same or counts != {"native": len(paths), "pil": 0, "pil_jpeg": 0}:
+        raise AssertionError("[decoder] the native decoder disagrees with PIL or JPEGs went to PIL")
+    return rates
+
+
+def validate_run(tag, trainer, paths, n_images, path, card):
+    """trainer.validate() over ``n_images`` val images (the dataset's test
+    split made so that ``test[::100]`` is them): the arrays it feeds the
+    evaluator, finite [N, 80]; its launches (``path`` in each of 12 layers,
+    a batch of 8 at a time); every JPEG decoded natively; its first batch
+    against run_batch of a freshly built one-member engine on the same
+    params (1e-4 of max(1, max|ref|)); crop-forwards/s."""
+    from PIL import Image
+
+    from leclip_tpu_torch.data.datasets import CaptionDataset
+    from leclip_tpu_torch.engine import evaluator
+    from leclip_tpu_torch.inference.tta import TTAEngine, build_model_spec
+    from leclip_tpu_torch.ops import launches
+    from leclip_tpu_torch.runtime import jpeg
+
+    ds = trainer.dataset
+    trainer.dataset = CaptionDataset(ds.tokens, ds.labels,
+                                     [p for p in paths[:n_images] for _ in range(100)],
+                                     ds.classnames)
+    calls = []
+    orig = evaluator.MLClassificationEvaluator.process
+
+    def process(self, out, labels, out_local=None):
+        calls.append((np.asarray(out), np.asarray(labels), np.asarray(out_local)))
+        return orig(self, out, labels, out_local)
+
+    evaluator.MLClassificationEvaluator.process = process
+    try:
+        jpeg.reset_decode_counts()
+        launches.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = trainer.validate()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, decoded = launches.launch_counts(), jpeg.decode_counts()
+    finally:
+        evaluator.MLClassificationEvaluator.process = orig
+    out, labels, local = (np.concatenate([c[i] for c in calls]) for i in range(3))
+    n_batches = math.ceil(n_images / SERVICE_BATCH)
+    expect_launches(f"[validate:{tag}] validate()", counts, path, 12 * n_batches)
+    prompt = {k: v for k, v in trainer.state.params.items() if k != "_adapter"}
+    spec = build_model_spec(trainer.clip_params, trainer.clip_cfg, prompt, trainer.constants,
+                            trainer.flags)
+    engine = TTAEngine(trainer.clip_params, trainer.clip_cfg, {trainer.model_name: spec},
+                       scales=trainer.cfg.TEST.multi_scale,
+                       crop_size=trainer.clip_cfg.image_resolution, device=DEVICE)
+    ref = engine.run_batch([np.asarray(Image.open(p).convert("RGB"))
+                            for p in paths[:SERVICE_BATCH]])[trainer.model_name]
+    errs = [within(out[:SERVICE_BATCH], ref["output_final"]),
+            within(local[:SERVICE_BATCH], ref["output_pos_final"])]
+    finite = bool(np.isfinite(out).all() and np.isfinite(local).all())
+    crops = n_images * (1 + engine.n_blocks)
+    log(f"[validate:{tag}] trainer.validate() over {n_images} val images 480x640 ({crops} crops, "
+        f"batches of {SERVICE_BATCH}) in {secs:.3f} s = {crops / secs:.1f} crop-forwards/s "
+        f"(decode, engine build, prompt features and scoring) on {card}; results {res}; "
+        f"evaluator arrays {out.shape} finite {finite}, labels zero {not labels.any()}; "
+        f"decoders {decoded}; launches {counts}; first batch against run_batch of a fresh "
+        f"one-member engine: output_final {errs[0][0]:.3g}, output_pos_final {errs[1][0]:.3g} "
+        f"(<= 1e-4 of max(1, max|ref|))")
+    if not (out.shape == local.shape == (n_images, 80) and finite and not labels.any()
+            and all(ok for _, ok in errs) and decoded["pil_jpeg"] == 0
+            and decoded["native"] == n_images):
+        raise AssertionError(f"[validate:{tag}] validate() disagrees")
+    return dict(secs=secs, rate=crops / secs, counts=counts)
+
+
+def flat_params(tree):
+    return torch.cat([t.reshape(-1).float().cpu() for t in flat_tree(tree)])
+
+
+def adapter_run(name, trainable, clip_cfg, text, dataset, card, out_dir, split=False):
+    """CaptionDistillAdapterTrainer.train() for 2 epochs (16 steps) on the
+    ema recipe: losses, launches, the first step's state, a warm step's
+    split."""
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.engine.trainer import CaptionDistillAdapterTrainer
+    from leclip_tpu_torch.ops import launches
+
+    opts, path = ADAPTER_RUNS[name]
+    cfg = setup_config(opts=TRAIN_RECIPE + opts + ["OUTPUT_DIR", out_dir,
+                                                   "TRAINER.adapter_trainable", str(trainable)])
+    trainer = CaptionDistillAdapterTrainer(cfg, {"text": text}, clip_cfg, dataset=dataset,
+                                           device=DEVICE)
+    tag = f"[adapter:{name}:{'trainable' if trainable else 'frozen'}]"
+    if trainer.caption_route != path or ("_adapter" in trainer.state.params) != trainable:
+        raise AssertionError(f"{tag} route {trainer.caption_route}, state "
+                             f"{sorted(trainer.state.params)}")
+    start, step, losses = trainer.state, trainer.train_step, []
+
+    def recording_step(state, captions, labels, mark=None):
+        new, metrics = step(state, captions, labels, mark=mark)
+        losses.append(metrics)
+        return new, metrics
+
+    trainer.train_step = recording_step
+    steps = trainer.batcher.steps_per_epoch() * cfg.OPTIM.MAX_EPOCH
+    launches.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.train()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches.launch_counts()
+    trainer.train_step = step
+    loss = [float(m["loss"]) for m in losses]
+    expect_launches(f"{tag} train()", counts, path, 12 * steps)
+    if len(loss) != steps or not np.isfinite(loss).all():
+        raise AssertionError(f"{tag} losses not finite / {len(loss)} steps: {loss}")
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"{tag} loss after {steps} steps {loss[-1]} not below the first "
+                             f"step's {loss[0]}")
+    moved = trainable and not torch.equal(state.params["_adapter"]["down_kernel"],
+                                          trainer.adapter["down_kernel"])
+    first = next(iter(trainer.batcher.epoch(0)))
+    warm = step_split(trainer, first) if split else None
+    log(f"{tag} caption branch {path}; train(): {steps} steps in {secs:.3f} s = "
+        f"{steps / secs:.3f} steps/s on {card}; loss step 1 {loss[0]:.5f} -> step {steps} "
+        f"{loss[-1]:.5f}; launches {counts}; adapter in the state {trainable}, moved {moved}"
+        + ("" if warm is None else "; one warm step " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in warm.items()) + f" ({sum(warm.values()):.3f} ms)"))
+    if trainable and not moved:
+        raise AssertionError(f"{tag} the trainable adapter did not move")
+    return dict(trainer=trainer, cfg=cfg, start=start, state=state, counts=counts, secs=secs,
+                steps=steps, split=warm, first=first)
+
+
+def adapter_phase(clip_cfg, text, dataset, card, tmp):
+    """The adapter trainer at RN50's text width on the ema recipe: fp32,
+    bf16 and TRAIN.int8_captions, each frozen and adapter_trainable (16
+    steps each); a resumed step against the uninterrupted one (fp32, both);
+    the card's first-step prompt gradient against the CPU port's on the
+    same weights, captions and start (fp32 trainable, cosine >= 0.9999)."""
+    from leclip_tpu_torch.device import tree_map
+    from leclip_tpu_torch.engine import checkpoint as ck
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.engine.trainer import CaptionDistillAdapterTrainer
+
+    runs = {}
+    for name in ADAPTER_RUNS:
+        for trainable in (False, True):
+            runs[(name, trainable)] = adapter_run(
+                name, trainable, clip_cfg, text, dataset, card,
+                os.path.join(tmp, f"adapter_{name}_{trainable}"), split=trainable)
+    for trainable in (False, True):
+        run = runs[("fp32", trainable)]
+        trainer = run["trainer"]
+        batch3 = next(iter(trainer.batcher.epoch(2)))
+        cont, cont_m = trainer.train_step(run["state"], batch3["img"], batch3["label"])
+        rcfg = setup_config(opts=TRAIN_RECIPE + ["OUTPUT_DIR", "", "RESUME",
+                                                 run["cfg"].OUTPUT_DIR,
+                                                 "TRAINER.adapter_trainable", str(trainable)])
+        resumed = CaptionDistillAdapterTrainer(rcfg, {"text": text}, clip_cfg, dataset=dataset,
+                                               device=DEVICE)
+        rstate, start_epoch = ck.resume_if_exists(resumed.state, rcfg.RESUME,
+                                                  resumed.model_name)
+        rnext, r_m = resumed.train_step(rstate, batch3["img"], batch3["label"])
+        exact = (start_epoch == 2 and trees_equal(rnext._asdict(), cont._asdict())
+                 and float(r_m["loss"]) == float(cont_m["loss"]))
+        log(f"[adapter:fp32:{'trainable' if trainable else 'frozen'}] resumed at epoch "
+            f"{start_epoch + 1} from its checkpoint: its first step equals the uninterrupted "
+            f"run's: {exact}")
+        if not exact:
+            raise AssertionError("[adapter] a resumed step differs from the uninterrupted one")
+
+    # the first step's prompt gradient (the adapter's included) on the card
+    # against the CPU port's: the same start, weights and captions
+    run = runs[("fp32", True)]
+    trainer, start, first = run["trainer"], run["start"], run["first"]
+    caps, labs = first["img"][:GRAD_CPU_CAPTIONS], first["label"][:GRAD_CPU_CAPTIONS]
+    wd = run["cfg"].OPTIM.WEIGHT_DECAY
+
+    def grad(new, s):  # the first SGD step's trace less the weight decay
+        return flat_params(new.opt_state["1"]["trace"]) - wd * flat_params(s.params)
+
+    g_card = grad(trainer.train_step(start, caps, labs)[0], start)
+    cpu = lambda t: t.cpu()  # noqa: E731
+    t0 = time.perf_counter()
+    cpu_trainer = CaptionDistillAdapterTrainer(
+        setup_config(opts=TRAIN_RECIPE + ["OUTPUT_DIR", "", "TRAINER.adapter_trainable", "True"]),
+        {"text": tree_map(cpu, text)}, clip_cfg, dataset=dataset, device="cpu",
+        adapter=tree_map(cpu, trainer.adapter))
+    cstart = start._replace(params=tree_map(cpu, start.params),
+                            ema_params=tree_map(cpu, start.ema_params),
+                            opt_state=tree_map(cpu, start.opt_state))
+    g_cpu = grad(cpu_trainer.train_step(cstart, caps, labs)[0], cstart)
+    cpu_s = time.perf_counter() - t0
+    cos = cos_rows(g_card[None], g_cpu[None]).item()
+    log(f"[adapter:fp32:trainable] first-step prompt gradient ({g_card.numel()} values, the "
+        f"adapter's included) of {GRAD_CPU_CAPTIONS} captions, card against the CPU port on the "
+        f"same start and weights: cosine {cos:.7f} (>= 0.9999), max|d| "
+        f"{(g_card - g_cpu).abs().max().item():.3g} of max|g| {g_cpu.abs().max().item():.3g}; "
+        f"CPU {cpu_s:.1f} s")
+    if not cos >= 0.9999:
+        raise AssertionError("[adapter] the card's gradient disagrees with the CPU port's")
+    total = {k: sum(r["counts"][k] for r in runs.values()) for k in run["counts"]}
+    return total, {f"{n}:{'trainable' if t else 'frozen'}":
+                   {k: r[k] for k in ("secs", "steps", "split")} for (n, t), r in runs.items()}
+
+
+def optimizer_phase(params, card, tmp):
+    """The five optimizers of the menu beside SGD, 8 steps each on the ema
+    recipe's prompt tree (phase 6's trained params) with seeded gradients:
+    the card against the CPU port within 1e-5 of each leaf's largest value,
+    TF32 off; the card's checkpoint read back by the CPU port bitwise; the
+    card's optimizer step by CUDA events (median of the 8)."""
+    from leclip_tpu_torch.device import tree_map
+    from leclip_tpu_torch.engine import checkpoint as ck
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.engine.train_state import build_optimizer, create_train_state
+
+    gen = torch.Generator().manual_seed(80)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    grads = [tree_map(lambda t: 0.01 * torch.randn(t.shape, generator=gen), cpu_params)
+             for _ in range(8)]
+    out = {}
+    for name in OPTIMIZERS:
+        opt = build_optimizer(setup_config(opts=TRAIN_RECIPE + ["OPTIM.NAME", name]).OPTIM, 8)
+        on, off = create_train_state(params, opt), create_train_state(cpu_params, opt)
+        p, s, cp, cs = on.params, on.opt_state, off.params, off.opt_state
+        ms = []
+        for g in grads:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            gd = tree_map(lambda t: t.to(DEVICE), g)
+            e0.record()
+            p, s = opt.update(gd, s, p)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            cp, cs = opt.update(g, cs, cp)
+        worst = max(((a.cpu().double() - b.double()).abs().max()
+                     / b.double().abs().max().clamp(min=1e-30)).item()
+                    for a, b in zip(flat_tree({"p": p, "s": s}), flat_tree({"p": cp, "s": cs})))
+        state = on._replace(step=8, params=p, ema_params=p, opt_state=s)
+        path = ck.save_checkpoint(state, tmp, f"opt_{name}", 0)
+        payload = ck.load_checkpoint(path)
+        back = all(trees_equal(payload[k], tree_map(lambda t: t.cpu(), getattr(state, k)))
+                   for k in ("params", "opt_state"))
+        out[name] = float(np.median(ms))
+        log(f"[optim:{name}] 8 steps on the prompt tree ({sum(t.numel() for t in flat_tree(p))} "
+            f"values): card against the CPU port max|d| {worst:.3g} of each leaf's largest "
+            f"(<= 1e-5); checkpoint ({os.path.getsize(path)} bytes) read back on the CPU "
+            f"bitwise: {back}; optimizer step {out[name]:.3f} ms (CUDA events, median of 8) on "
+            f"{card}")
+        if worst > 1e-5 or not back:
+            raise AssertionError(f"[optim:{name}] the card disagrees with the CPU port")
+    return out
+
+
+def profiler_check(clip_cfg, text, dataset, card, tmp):
+    """TRAIN.profile_dir on a bf16 trainer (its caption branch on rows 1-2),
+    one epoch of 8 steps, the window the steps after 1 .. 5: the trace files
+    exist and name the block kernels' launches; train() with and without
+    the window."""
+    import glob
+
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.engine.trainer import CaptionDistillTrainer
+
+    secs = {}
+    prof = os.path.join(tmp, "prof")
+    for with_prof in (False, True):
+        opts = TRAIN_RECIPE + ["TRAINER.PREC", "bf16", "OPTIM.MAX_EPOCH", "1", "OUTPUT_DIR",
+                               os.path.join(tmp, f"prof_run_{with_prof}")]
+        if with_prof:
+            opts += ["TRAIN.profile_dir", prof]
+        trainer = CaptionDistillTrainer(setup_config(opts=opts), {"text": text}, clip_cfg,
+                                        dataset=dataset, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        secs[with_prof] = time.perf_counter() - t0
+    files = sorted(glob.glob(os.path.join(prof, "**", "*.pt.trace.json"), recursive=True))
+    names = set()
+    for f in files:
+        with open(f) as fh:
+            names |= {e.get("name", "") for e in json.load(fh).get("traceEvents", [])
+                      if e.get("cat") == "kernel"}
+    rows = {"attn_block_bf16 (QKV GEMM)": any("hopper_gemm<0>" in n for n in names),
+            "mlp_bf16 (fc GEMM)": any("hopper_gemm<1>" in n for n in names),
+            "their LayerNorm": any("ln_bf16_rows" in n for n in names)}
+    size = sum(os.path.getsize(f) for f in files)
+    log(f"[profiler] TRAIN.profile_dir: {len(files)} trace file(s), {size / 2 ** 20:.2f} MiB, "
+        f"{len(names)} kernel names; rows 1-2's launches named: {rows}; train() of 8 steps "
+        f"{secs[False]:.3f} s without the window, {secs[True]:.3f} s with it (trace written) on "
+        f"{card}")
+    if not files or not any(rows.values()):
+        raise AssertionError("[profiler] no trace, or it names no block kernel")
+    return dict(files=len(files), bytes=size, secs=secs)
+
+
+def zeroshot_cli(img_dir, paths, card):
+    """python -m leclip_tpu_torch.cli.zeroshot in a fresh process for RN50
+    and ViT-B/16 (seeded random fp32 weights) over the phase's JPEGs: its
+    --out JSON against the same scoring here with DenseFlags(
+    attention_impl="xla") (1e-4 of max(1, max|ref|)), the launches the CLI
+    prints (ViT: resident_attention in each of 12 layers), images/s."""
+    import argparse
+
+    from leclip_tpu_torch.cli.eval import load_clip
+    from leclip_tpu_torch.cli.zeroshot import zero_shot_scores, zero_shot_text_features
+    from leclip_tpu_torch.data.vocab import COCO_OBJECT_CATEGORIES
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.ops.preprocess import preprocess_eval
+    from leclip_tpu_torch.runtime import jpeg
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    out, total = {}, None
+    for backbone, path in ZEROSHOT_BACKBONES:
+        out_json = os.path.join(os.path.dirname(img_dir),
+                                f"zeroshot_{backbone.replace('/', '')}.json")
+        cmd = [sys.executable, "-m", "leclip_tpu_torch.cli.zeroshot", "--backbone", backbone,
+               "--images-dir", img_dir, "--out", out_json, "--batch-size", str(len(paths)),
+               "--device", DEVICE.type]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+        whole = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"[zeroshot:{backbone}] exit {run.returncode}:\n{run.stdout}\n"
+                                 f"{run.stderr}")
+        scored = re.search(r"scored (\d+) images in ([\d.]+) s", run.stdout)
+        counts = json.loads(re.search(r"^kernel launches: (.*)$", run.stdout, re.M).group(1))
+        expect_launches(f"[zeroshot:{backbone}] the CLI's process", counts, path, 12)
+        with open(out_json) as f:
+            got = json.load(f)
+        clip_cfg, params = load_clip(setup_config(), argparse.Namespace(weights="",
+                                                                        backbone=backbone), DEVICE)
+        text_feats = zero_shot_text_features(params, clip_cfg, COCO_OBJECT_CATEGORIES)
+        images = torch.stack([preprocess_eval(torch.tensor(im, device=DEVICE),
+                                              clip_cfg.image_resolution)
+                              for im in jpeg.decode_batch(paths)])
+        ref = zero_shot_scores(params, clip_cfg, images, text_feats, attention_impl="xla")
+        mine = np.asarray([got[os.path.basename(p)] for p in paths])
+        err, ok = within(mine, ref)
+        n, secs = int(scored.group(1)), float(scored.group(2))
+        out[backbone] = dict(rate=n / secs, whole=whole, counts=counts)
+        log(f"[zeroshot:{backbone}] CLI in a fresh process: {n} JPEGs scored in {secs:.3f} s = "
+            f"{n / secs:.1f} images/s (decode, preprocess, towers, scores; the whole command "
+            f"{whole:.2f} s); --out scores {mine.shape} against attention_impl=\"xla\" here: "
+            f"max|d| {err:.3g} (<= 1e-4 of max(1, max|ref|)); kernels the CLI's process launched "
+            f"{counts} on {card}")
+        if not (ok and n == len(paths) and np.isfinite(mine).all()):
+            raise AssertionError(f"[zeroshot:{backbone}] the CLI's scores disagree")
+        total = counts if total is None else {k: total[k] + counts[k] for k in total}
+    return total, out
+
+
+def caption_eval_check(clip_cfg, text, toks, card):
+    """score_caption_benchmark over 1,024 synthetic captions, six members
+    (RN50 text, phase 6's weights) and an 8,192-row bank: fp32, then the
+    tower in bf16 (rows 1-2 in each layer); bf16 against fp32 (correlation
+    >= 0.999 over every output), fp32 against the CPU port on the first 64
+    captions (1e-4 of max(1, max|ref|)); warm captions/s."""
+    from leclip_tpu_torch.device import cast_floating, tree_map
+    from leclip_tpu_torch.inference.caption_eval import score_caption_benchmark
+    from leclip_tpu_torch.ops import launches
+
+    specs = build_members({"text": text}, clip_cfg, torch.float32)
+    gen = torch.Generator(device=DEVICE).manual_seed(81)
+    bank = torch.nn.functional.normalize(
+        torch.randn(BANK_ROWS, clip_cfg.embed_dim, generator=gen, device=DEVICE), dim=-1)
+    caps = toks[:CAPTION_EVAL_ROWS]
+    res, counts, rate = {}, {}, {}
+    for prec, tower in (("fp32", text), ("bf16", cast_floating(text, torch.bfloat16))):
+        score_caption_benchmark({"text": tower}, clip_cfg, specs, caps[:256], bank,
+                                device=DEVICE)  # first use of each kernel and library
+        launches.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[prec] = score_caption_benchmark({"text": tower}, clip_cfg, specs, caps, bank,
+                                            device=DEVICE)
+        torch.cuda.synchronize()
+        rate[prec] = len(caps) / (time.perf_counter() - t0)
+        counts[prec] = launches.launch_counts()
+        expect_launches(f"[caption-eval:{prec}]", counts[prec],
+                        "bf16" if prec == "bf16" else "plain", 12 * math.ceil(len(caps) / 256))
+
+    def flat(r):
+        return np.concatenate([r[0][m][k].ravel() for m in sorted(r[0]) for k in sorted(r[0][m])]
+                              + [r[1].ravel()])
+
+    corr = float(np.corrcoef(flat(res["bf16"]), flat(res["fp32"]))[0, 1])
+    cpu = lambda t: t.cpu()  # noqa: E731
+    t0 = time.perf_counter()
+    ref, ref_sims = score_caption_benchmark(
+        {"text": tree_map(cpu, text)}, clip_cfg, specs, caps[:CAPTION_EVAL_CPU_ROWS], bank.cpu(),
+        device="cpu")
+    cpu_s = time.perf_counter() - t0
+    out32, sims32 = res["fp32"]
+    errs = [within(out32[m][k][:CAPTION_EVAL_CPU_ROWS], ref[m][k]) for m in ref for k in ref[m]]
+    errs.append(within(sims32[:CAPTION_EVAL_CPU_ROWS], ref_sims))
+    shapes = {k: v.shape for k, v in out32[next(iter(out32))].items()}
+    log(f"[caption-eval] score_caption_benchmark over {len(caps)} captions, {len(specs)} members, "
+        f"a {BANK_ROWS}-row bank: outputs {shapes}, sims {sims32.shape}; captions/s fp32 "
+        f"{rate['fp32']:.1f}, bf16 {rate['bf16']:.1f} (warm) on {card}; launches fp32 "
+        f"{counts['fp32']}, bf16 {counts['bf16']}; bf16 against fp32 correlation {corr:.6f} "
+        f"(>= 0.999); fp32 against the CPU port on {CAPTION_EVAL_CPU_ROWS} captions max|d| "
+        f"{max(e for e, _ in errs):.3g} (<= 1e-4 of max(1, max|ref|)); CPU {cpu_s:.1f} s")
+    if not (corr >= 0.999 and all(ok for _, ok in errs) and np.isfinite(flat(res["bf16"])).all()):
+        raise AssertionError("[caption-eval] the benchmark disagrees")
+    return counts["bf16"], rate
+
+
+def phase_flow(card, inputs, trained):
+    """Phase 8: validate on phase 6's fp32 RN50 trainer (its image tower
+    added; 64 val images at 305 crops) and on a ViT-B/16 trainer of 2 steps
+    (16 images; resident_attention in every layer), the adapter trainer,
+    the optimizer menu, the profiler window, the native JPEG decoder, the
+    zero-shot CLI and the caption benchmark. Returns ({path: launches},
+    {part: results})."""
+    from leclip_tpu_torch.data.datasets import CaptionDataset
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.engine.trainer import CaptionDistillTrainer
+    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
+
+    toks = inputs[2]
+    text, clip_cfg, dataset, trainer = (trained[k] for k in ("text", "clip_cfg", "dataset",
+                                                             "trainer"))
+    gen_np = np.random.default_rng(80)
+    tmp = tempfile.mkdtemp(prefix="leclip_phase8_")
+    secs, res, launched = {}, {}, {}
+
+    def part(key, fn, *args):
+        t0 = time.perf_counter()
+        res[key] = fn(*args)
+        secs[key] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    try:
+        img_dir = os.path.join(tmp, "jpegs")
+        os.makedirs(img_dir)
+        paths = []
+        for i, blob in enumerate(jpeg_blobs(FLOW_IMAGES, gen_np)):
+            paths.append(os.path.join(img_dir, f"img{i:02d}.jpg"))
+            with open(paths[-1], "wb") as f:
+                f.write(blob)
+        part("decoder", decoder_check, paths, card)
+
+        # validate on phase 6's trainer with an RN50 image tower added (fp32,
+        # seeded random, random BN statistics)
+        gen = torch.Generator(device=DEVICE).manual_seed(82)
+        visual = randomize_bn(init_clip_params(gen, PRESETS["RN50"], device=DEVICE)["visual"],
+                              gen)
+        trainer.clip_params = dict(trainer.clip_params, visual=visual)
+        part("validate:rn50", validate_run, "rn50", trainer, paths, FLOW_IMAGES, "plain", card)
+        trainer.clip_params = {"text": trainer.clip_params["text"]}
+        del visual
+
+        # a ViT-B/16 trainer (fp32) of 2 steps, validated on 16 images
+        vcfg = PRESETS["ViT-B/16"]
+        vparams = init_clip_params(torch.Generator(device=DEVICE).manual_seed(83), vcfg,
+                                   device=DEVICE)
+        vit = CaptionDistillTrainer(
+            setup_config(opts=TRAIN_RECIPE + ["OPTIM.MAX_EPOCH", "1", "OUTPUT_DIR",
+                                              os.path.join(tmp, "vit")]),
+            vparams, vcfg, device=DEVICE,
+            dataset=CaptionDataset(toks[:2048], caption_labels(toks[:2048]), [],
+                                   dataset.classnames))
+        vit.train()
+        part("validate:vit", validate_run, "vit-b16", vit, paths, VIT_VAL_IMAGES, "fp32", card)
+        launched["validate"] = {k: res["validate:rn50"]["counts"][k]
+                                + res["validate:vit"]["counts"][k]
+                                for k in res["validate:vit"]["counts"]}
+        del vit, vparams
+        torch.cuda.empty_cache()
+
+        part("adapter", adapter_phase, clip_cfg, text, dataset, card, tmp)
+        launched["adapter"] = res["adapter"][0]
+        part("optimizers", optimizer_phase, trainer.state.params, card, tmp)
+        part("profiler", profiler_check, clip_cfg, text, dataset, card, tmp)
+        part("zeroshot", zeroshot_cli, img_dir, paths, card)
+        launched["zeroshot"] = res["zeroshot"][0]
+        part("caption-eval", caption_eval_check, clip_cfg, text, toks, card)
+        launched["caption_eval"] = res["caption-eval"][0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[phase8] {time.perf_counter() - t0:.1f} s in all: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    return launched, res
 
 
 KERNEL_SOURCES = {  # name: (source, file:line of the TPU kernel, its precision path)
@@ -2270,8 +2892,14 @@ def main() -> int:
     for k, n in total7.items():
         total[k] = total.get(k, 0) + n
     torch.cuda.empty_cache()
-    train_counts, _ = phase_train(card, inputs)
+    train_counts, _, trained = phase_train(card, inputs)
     for k, n in train_counts.items():
+        total[k] = total.get(k, 0) + n
+    # phase 8 continues on phase 6's fp32 trainer
+    flow, _ = phase_flow(card, inputs, trained)
+    del trained
+    flow_total = {k: sum(c[k] for c in flow.values()) for k in total}
+    for k, n in flow_total.items():
         total[k] = total.get(k, 0) + n
 
     line = {"kernels": []}
@@ -2296,6 +2924,8 @@ def main() -> int:
             **({"launches_rn50_bank": rn_bank_counts[k]} if prec == "bf16" else {}),
             "launches_train": train_counts[k],
             "launches_phase7": total7[k],
+            **{f"launches_{path}": flow[path][k] for path in ("validate", "adapter", "zeroshot",
+                                                               "caption_eval")},
             **({"device_ms": vit["device_ms"], "text_device_ms": text["device_ms"]}
                if "device_ms" in vit else {}),
             **({"launch_ms": launch_ms[k]} if k in launch_ms else {}),
@@ -2305,7 +2935,7 @@ def main() -> int:
         main_v = variants["vit fp32"]  # the shape and dtype the main path gives it
         line["kernels"].append({
             "name": k, "route": "cuda", "source": src, "headers": headers, "replaces": replaces,
-            "launches": total_attn[k] + total7[k],
+            "launches": total_attn[k] + total7[k] + flow_total[k],
             "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
             **{key: main_v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")},
@@ -2314,6 +2944,8 @@ def main() -> int:
             "variants": variants, "path": path,
             "launches_fp32_bank": fp32_bank_counts[k], "launches_path_a": counts_a[k],
             "launches_path_b": counts_b[k], "launches_phase7": total7[k],
+            **{f"launches_{path}": flow[path][k] for path in ("validate", "adapter", "zeroshot",
+                                                               "caption_eval")},
         })
     print(card, flush=True)
     print(json.dumps(line), flush=True)

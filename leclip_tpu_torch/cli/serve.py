@@ -21,8 +21,8 @@ Endpoints (stdlib http.server):
                    the engine in place; batches already dispatched finish on
                    the engine they were dispatched to.
 
-Images are decoded with PIL in the handler threads
-(``data/loader.decode_bytes_batch``). The worker thread alone dispatches to
+Images are decoded in the handler threads (``data/loader.decode_bytes_batch``:
+JPEGs by the native libjpeg decoder when it is available, the rest by PIL). The worker thread alone dispatches to
 the engine: its first dispatch builds the kernels, under ops/_build.py's
 lock, and every dispatch enters ``torch.inference_mode`` itself (the mode
 is per thread).

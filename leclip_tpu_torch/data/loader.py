@@ -3,10 +3,11 @@ decode for evaluation (the port's own copy of ``CaptionBatcher``,
 ``load_image``, ``image_size`` and ``ImageBatcher`` in
 leclip_tpu/data/loader.py), and the byte-level decoders of the scoring
 service (``decode_bytes_batch`` and ``declared_pixels``, after
-leclip_tpu/runtime/jpeg.py and cli/serve.py). PIL is imported when an image
-is read. The native libjpeg runtime of the JAX package is not ported yet
-(ROADMAP.md queue 1 item 5): decoding uses PIL, whose output that runtime is
-held equal to."""
+leclip_tpu/runtime/jpeg.py and cli/serve.py). ``ImageBatcher`` and
+``decode_bytes_batch`` decode JPEGs with the native multithreaded libjpeg
+runtime (runtime/jpeg.py, PIL's output bit for bit) when it is available, as
+the JAX package's do, and everything else with PIL; runtime/jpeg.py counts
+which decoder took each image."""
 
 from __future__ import annotations
 
@@ -48,31 +49,26 @@ class CaptionBatcher:
 
 
 def load_image(path: str) -> np.ndarray:
-    """Decode one image to uint8 RGB [H, W, 3] (retry once on IO errors)."""
-    from PIL import Image
+    """Decode one image with PIL to uint8 RGB [H, W, 3] (retry once on IO
+    errors)."""
+    from ..runtime.jpeg import pil_decode
 
     for attempt in range(2):
         try:
-            with Image.open(path) as im:
-                return np.asarray(im.convert("RGB"), np.uint8)
+            return pil_decode(path)
         except OSError:
             if attempt:
                 raise
     raise OSError(f"unreadable image {path}")
 
 
-def decode_bytes_batch(blobs: Sequence[bytes]) -> List[np.ndarray]:
+def decode_bytes_batch(blobs: Sequence[bytes], threads: int = 8) -> List[np.ndarray]:
     """Decode in-memory images (JPEG, PNG, ...; the serving path: no
-    filesystem round trip) → list of uint8 RGB [H, W, 3] arrays."""
-    import io
+    filesystem round trip) → list of uint8 RGB [H, W, 3] arrays: JPEGs by
+    the native decoder when it is available, the rest by PIL."""
+    from ..runtime.jpeg import decode_bytes_batch as decode
 
-    from PIL import Image
-
-    out = []
-    for blob in blobs:
-        with Image.open(io.BytesIO(blob)) as im:
-            out.append(np.asarray(im.convert("RGB"), np.uint8))
-    return out
+    return decode(blobs, threads)
 
 
 def declared_pixels(blob: bytes) -> int:
@@ -98,6 +94,8 @@ def image_size(path: str) -> Tuple[int, int]:
 
 class ImageBatcher:
     """Image decode → fixed-size batches of raw uint8 images plus their paths.
+    JPEGs go through the native multithreaded decoder when it is available
+    (``native=False`` keeps a PIL thread pool), everything else through PIL.
 
     ``sort_by_bucket`` orders the images by the shape bucket ``bucket_fn``
     maps them to (then by exact size), so one large image does not drag a
@@ -105,7 +103,7 @@ class ImageBatcher:
     crop path. ``inverse_order`` restores the input order."""
 
     def __init__(self, paths: Sequence[str], batch_size: int, workers: int = 8,
-                 sort_by_bucket: bool = False, bucket_fn=None):
+                 native: bool = True, sort_by_bucket: bool = False, bucket_fn=None):
         paths = list(paths)
         self.order = np.arange(len(paths))
         if sort_by_bucket and paths:
@@ -122,6 +120,11 @@ class ImageBatcher:
         self.paths = paths
         self.batch_size = batch_size
         self.workers = workers
+        self.native = False
+        if native:
+            from ..runtime.jpeg import native_available
+
+            self.native = native_available()
 
     @property
     def inverse_order(self) -> np.ndarray:
@@ -133,6 +136,13 @@ class ImageBatcher:
         return (len(self.paths) + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Tuple[List[np.ndarray], List[str]]]:
+        if self.native:
+            from ..runtime.jpeg import decode_batch
+
+            for start in range(0, len(self.paths), self.batch_size):
+                chunk = self.paths[start: start + self.batch_size]
+                yield decode_batch(chunk, threads=self.workers), chunk
+            return
         with concurrent.futures.ThreadPoolExecutor(self.workers) as pool:
             for start in range(0, len(self.paths), self.batch_size):
                 chunk = self.paths[start: start + self.batch_size]

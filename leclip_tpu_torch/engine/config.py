@@ -141,8 +141,8 @@ class TrainConfig:
                                  # branch (ops/block_kernels.py); effective on
                                  # the card with PREC bf16 only, superseded by
                                  # int8_captions
-    profile_dir: str = ""       # the JAX package's profiler window; the port
-                                # raises when it is set (not ported yet)
+    profile_dir: str = ""       # when set, trace first-epoch steps after
+                                # 1..5 with torch.profiler into this dir
     # Hold out every Nth training caption as a LABELED accuracy probe
     # (0 = off). The competition val split is unlabeled (mAP always 0), so
     # this held-out texts-as-images split is the only way a training run can

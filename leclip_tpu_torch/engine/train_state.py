@@ -6,20 +6,23 @@ optimizer.py:13-137, lr_scheduler.py:83-154, update cadence
 dassl/engine/trainer.py + Caption_distill_double.py:894-895): SGD with
 momentum 0.9 and coupled weight decay 5e-4 over the prompt-learner params
 only, cosine annealing stepped ONCE PER EPOCH, optional constant/linear
-warmup epochs.
+warmup epochs. adam, amsgrad, adamw, rmsprop and radam complete the JAX
+package's menu.
 
 The update is written as plain functions on tensors, not ``torch.optim``, so
 that the optimizer state is the JAX package's tree leaf for leaf: its
-``optax.chain(add_decayed_weights, trace, scale_by_learning_rate)`` state in
-flax's state-dict form, ``{"0": {}, "1": {"trace": {...}}, "2": {"count":
-int32}}`` (``"1"`` also holds ``"step"`` when SGD dampening is set). A
-checkpoint's ``opt_state`` therefore crosses between the packages unchanged.
+optax chain's state in flax's state-dict form, one entry per link of the
+chain, keyed ``"0"``, ``"1"``, ... (SGD: ``{"0": {}, "1": {"trace": {...}},
+"2": {"count": int32}}``, ``"1"`` also holding ``"step"`` when SGD dampening
+is set; adam: ``{"0": {}, "1": {"count", "mu", "nu"}, "2": {"count"}}``; the
+table in :func:`build_optimizer`). A checkpoint's ``opt_state`` therefore
+crosses between the packages unchanged.
 
 The learning rate is computed on the host in float32, operation for
 operation as XLA compiles the JAX package's schedule (its float32 ``cos`` on
 the CPU is the C library's ``cosf``, called here through ctypes), so both
-packages take the same rate at every step. Only ``sgd`` is ported; the
-other optimizers of the JAX menu raise."""
+packages take the same rate at every step; so are the moment optimizers'
+bias corrections."""
 
 from __future__ import annotations
 
@@ -34,8 +37,6 @@ import torch
 from ..models.prompt import ema_init
 from .config import OptimConfig
 
-NOT_PORTED = ("optimizer {!r} is not ported yet (ROADMAP.md queue 1); the port trains "
-              "with 'sgd', which every shipped recipe uses")
 _F32 = np.float32
 
 
@@ -137,33 +138,177 @@ def epoch_lr_schedule(optim: OptimConfig, steps_per_epoch: int) -> Callable[[int
     return lr
 
 
-def _tree(fn, *trees: dict) -> dict:
-    return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+def _tree(fn, *trees):
+    """``fn`` over the tensor leaves of nested dicts of one structure (the
+    prompt params, with the adapter trainer's ``_adapter`` subtree)."""
+    if isinstance(trees[0], dict):
+        return {k: _tree(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _zeros(params: dict) -> dict:
+    return _tree(torch.zeros_like, params)
+
+
+def _count() -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32)
+
+
+def _bias(decay: float, count: int) -> np.float32:
+    """optax's bias correction ``1 - decay ** count`` in float32."""
+    return _F32(1.0) - _F32(decay) ** _F32(count)
+
+
+def _scaled(u: dict, step_size: np.float32, params: dict) -> dict:
+    """``params + step_size * u`` (``scale_by_learning_rate`` then
+    ``apply_updates``), the scalar in each leaf's dtype."""
+    return _tree(lambda p, ui: p + torch.tensor(step_size, dtype=ui.dtype, device=ui.device)
+                 * ui, params, u)
+
+
+def _adam_moments(g: dict, mu: dict, nu: dict, b1: float, b2: float):
+    """optax's ``update_moment`` of orders 1 and 2."""
+    return (_tree(lambda gi, m: (1 - b1) * gi + b1 * m, g, mu),
+            _tree(lambda gi, v: (1 - b2) * (gi * gi) + b2 * v, g, nu))
 
 
 def build_optimizer(optim: OptimConfig, steps_per_epoch: int) -> Optimizer:
-    """SGD with torch-exact update semantics (the reference builds
-    torch.optim.SGD, dassl/optim/optimizer.py:83-137): weight decay is added
-    to the GRADIENT before the momentum update; the momentum buffer follows
-    ``optax.trace`` (= torch's without dampening) or, when SGD_DAMPNING is
-    set, torch's dampened buffer whose first step is the raw gradient."""
+    """The optimizer menu with torch-exact update semantics (the reference
+    builds torch optimizers, dassl/optim/optimizer.py:83-137), each the JAX
+    package's optax chain written out on tensors: weight decay is added to
+    the GRADIENT before the moment updates for every optimizer except AdamW
+    (decoupled, ``optax.adamw``) and RAdam (the vendored dassl RAdam adds
+    it after the scaling). The chains, whose links key the state:
+
+    ==========  ===================================================  ==========================
+    sgd         add_decayed_weights, trace (or torch's dampened       "1": trace (+ step)
+                buffer when SGD_DAMPNING is set), lr
+    adam        add_decayed_weights, scale_by_adam, lr               "1": count, mu, nu
+    amsgrad     add_decayed_weights, torch's amsgrad (the max of the  "1": count, mu, nu, nu_max
+                RAW second moment, then the bias correction), lr
+    adamw       scale_by_adam, add_decayed_weights, lr               "0": count, mu, nu
+    rmsprop     add_decayed_weights, scale_by_rms (eps outside the   "1": nu; "2": trace
+                sqrt), trace(MOMENTUM), lr
+    radam       scale_by_radam, add_decayed_weights, lr              "0": count, mu, nu
+    ==========  ===================================================  ==========================
+
+    The last link is ``scale_by_learning_rate``, whose state is the step
+    ``count`` the schedule reads; every other link's state is ``{}``."""
     name = optim.NAME.lower()
-    if name != "sgd":
-        raise NotImplementedError(NOT_PORTED.format(optim.NAME))
     schedule = epoch_lr_schedule(optim, steps_per_epoch)
     wd = optim.WEIGHT_DECAY
+    b1 = getattr(optim, "ADAM_BETA1", 0.9)
+    b2 = getattr(optim, "ADAM_BETA2", 0.999)
+    eps = 1e-8
+
+    def decayed(g: dict, params: dict) -> dict:              # add_decayed_weights
+        return _tree(lambda gi, p: gi + wd * p, g, params)
+
+    def adam(g: dict, st: dict):                             # scale_by_adam
+        mu, nu = _adam_moments(g, st["mu"], st["nu"], b1, b2)
+        count = st["count"] + 1
+        bc1, bc2 = _bias(b1, int(count)), _bias(b2, int(count))
+        u = _tree(lambda m, v: (m / float(bc1)) / (torch.sqrt(v / float(bc2)) + eps), mu, nu)
+        return u, {"count": count, "mu": mu, "nu": nu}
+
+    def amsgrad(g: dict, st: dict):                          # torch's amsgrad
+        mu, nu = _adam_moments(g, st["mu"], st["nu"], b1, b2)
+        nu_max = _tree(torch.maximum, st["nu_max"], nu)
+        count = st["count"] + 1
+        bc1, bc2 = _bias(b1, int(count)), _bias(b2, int(count))
+        u = _tree(lambda m, v: (m / float(bc1)) / (torch.sqrt(v / float(bc2)) + eps), mu, nu_max)
+        return u, {"count": count, "mu": mu, "nu": nu, "nu_max": nu_max}
+
+    def radam(g: dict, st: dict):                            # scale_by_radam
+        mu, nu = _adam_moments(g, st["mu"], st["nu"], b1, b2)
+        count = st["count"] + 1
+        c = int(count)
+        bc1, bc2 = _bias(b1, c), _bias(b2, c)
+        ro_inf = _F32(2.0 / (1.0 - b2) - 1.0)
+        b2t = _F32(b2) ** _F32(c)
+        ro = ro_inf - _F32(2 * c) * b2t / (_F32(1.0) - b2t)
+        if ro >= 5.0:
+            r = float(np.sqrt((ro - _F32(4.0)) * (ro - _F32(2.0)) * ro_inf
+                              / ((ro_inf - _F32(4.0)) * (ro_inf - _F32(2.0)) * ro)))
+            u = _tree(lambda m, v: r * (m / float(bc1)) / (torch.sqrt(v / float(bc2)) + eps),
+                      mu, nu)
+        else:
+            u = _tree(lambda m: m / float(bc1), mu)
+        return u, {"count": count, "mu": mu, "nu": nu}
+
+    if name == "sgd":
+        return _sgd(optim, schedule, decayed)
+    if name in ("adam", "amsgrad"):
+        scale = adam if name == "adam" else amsgrad
+
+        def init(params):
+            st = {"count": _count(), "mu": _zeros(params), "nu": _zeros(params)}
+            if name == "amsgrad":
+                st["nu_max"] = _zeros(params)
+            return {"0": {}, "1": st, "2": {"count": _count()}}
+
+        def update(grads, state, params):
+            u, st = scale(decayed(grads, params), state["1"])
+            count = state["2"]["count"]
+            return (_scaled(u, -schedule(int(count)), params),
+                    {"0": {}, "1": st, "2": {"count": count + 1}})
+
+        return Optimizer(init, update)
+    if name in ("adamw", "radam"):
+        scale = adam if name == "adamw" else radam
+
+        def init(params):
+            return {"0": {"count": _count(), "mu": _zeros(params), "nu": _zeros(params)},
+                    "1": {}, "2": {"count": _count()}}
+
+        def update(grads, state, params):
+            u, st = scale(grads, state["0"])
+            u = decayed(u, params)
+            count = state["2"]["count"]
+            return (_scaled(u, -schedule(int(count)), params),
+                    {"0": st, "1": {}, "2": {"count": count + 1}})
+
+        return Optimizer(init, update)
+    if name == "rmsprop":
+        # torch RMSprop: sq = α·sq + (1−α)·g², denom = √sq + eps (eps OUTSIDE
+        # the sqrt), buf = m·buf + g/denom, p -= lr·buf
+        alpha = getattr(optim, "RMSPROP_ALPHA", 0.99)
+        decay = optim.MOMENTUM
+
+        def init(params):
+            return {"0": {}, "1": {"nu": _zeros(params)}, "2": {"trace": _zeros(params)},
+                    "3": {"count": _count()}}
+
+        def update(grads, state, params):
+            g = decayed(grads, params)
+            nu = _tree(lambda gi, v: (1 - alpha) * (gi * gi) + alpha * v, g, state["1"]["nu"])
+            u = _tree(lambda gi, v: (1 / (torch.sqrt(v) + eps)) * gi, g, nu)
+            trace = _tree(lambda ui, t: ui + decay * t, u, state["2"]["trace"])
+            count = state["3"]["count"]
+            return (_scaled(trace, -schedule(int(count)), params),
+                    {"0": {}, "1": {"nu": nu}, "2": {"trace": trace}, "3": {"count": count + 1}})
+
+        return Optimizer(init, update)
+    raise ValueError(f"unknown optimizer {optim.NAME!r}")
+
+
+def _sgd(optim: OptimConfig, schedule: Callable, decayed: Callable) -> Optimizer:
+    """SGD (the reference builds torch.optim.SGD): the momentum buffer
+    follows ``optax.trace`` (= torch's without dampening) or, when
+    SGD_DAMPNING is set, torch's dampened buffer whose first step is the raw
+    gradient."""
     decay = optim.MOMENTUM
     dampening = getattr(optim, "SGD_DAMPNING", 0.0)  # dassl's spelling
     nesterov = getattr(optim, "SGD_NESTEROV", False)
 
     def init(params: dict) -> dict:
-        mom = {"trace": {k: torch.zeros_like(v) for k, v in params.items()}}
+        mom = {"trace": _zeros(params)}
         if dampening:
-            mom["step"] = torch.zeros((), dtype=torch.int32)
-        return {"0": {}, "1": mom, "2": {"count": torch.zeros((), dtype=torch.int32)}}
+            mom["step"] = _count()
+        return {"0": {}, "1": mom, "2": {"count": _count()}}
 
     def update(grads: dict, state: dict, params: dict):
-        g = _tree(lambda gi, p: gi + wd * p, grads, params)  # add_decayed_weights
+        g = decayed(grads, params)
         mom = state["1"]
         if dampening:                                            # torch's dampened buffer
             first = int(mom["step"]) == 0
@@ -175,15 +320,13 @@ def build_optimizer(optim: OptimConfig, steps_per_epoch: int) -> Optimizer:
             new_mom = {"trace": trace}
         u = _tree(lambda gi, t: gi + decay * t, g, trace) if nesterov else trace
         count = state["2"]["count"]
-        step_size = -schedule(int(count))                        # scale_by_learning_rate
-        new = _tree(lambda p, ui: p + torch.tensor(step_size, dtype=ui.dtype,
-                                                   device=ui.device) * ui, params, u)
-        return new, {"0": {}, "1": new_mom, "2": {"count": count + 1}}
+        return (_scaled(u, -schedule(int(count)), params),
+                {"0": {}, "1": new_mom, "2": {"count": count + 1}})
 
     return Optimizer(init, update)
 
 
 def create_train_state(trainable: Dict[str, torch.Tensor], optimizer: Optimizer) -> TrainState:
-    params = {k: v.detach().clone() for k, v in trainable.items()}
+    params = _tree(lambda v: v.detach().clone(), trainable)
     return TrainState(step=0, params=params, ema_params=ema_init(params),
                       opt_state=optimizer.init(params))

@@ -19,9 +19,15 @@ The prompt branch, which carries the gradients, runs the plain math (its
 causal attention takes the plain route, as in JAX). Every product of a step
 runs in full fp32 where its operands are fp32 (TF32 off, ``device.no_tf32``).
 
-Not ported: the data mesh and multi-process loading, the adapter trainer,
-the image-split ``validate`` (only the caption probe), and the
-``TRAIN.profile_dir`` trace window."""
+``validate`` scores the held-out caption probe (``TRAIN.probe_holdout``) or
+else the dataset's val images through a one-member TTA engine;
+``TRAIN.profile_dir`` traces a bounded window of first-epoch steps with
+torch.profiler; ``Caption_distill_double_adapter`` (the
+:class:`CaptionDistillAdapterTrainer`) encodes the prompts through the
+bottleneck adapter of models/adapter.py.
+
+Not ported: the data mesh, multi-process loading and device prefetch
+(``TRAIN.prefetch_batches`` raises)."""
 
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ from ..models.clip import CLIPConfig
 from ..models.dense_clip import DenseFlags, encode_captions, train_logits_from_features
 from ..models.prompt import assemble_prompts, build_prompt_learner, ema_update
 from ..ops import losses as L
-from ..utils.logging import PROFILE_PENDING, MetricMeter
+from ..utils.logging import MetricMeter, profiler_trace
 from ..utils.registry import TRAINER_REGISTRY
 from .checkpoint import resume_if_exists, save_checkpoint
 from .config import Config
@@ -78,6 +84,8 @@ def make_train_step(
     caption_q8: Optional[dict] = None,
     caption_fused: bool = False,
     caption_text: Optional[dict] = None,
+    adapter: Optional[dict] = None,
+    adapter_trainable: bool = False,
 ) -> Callable:
     """Build the (state, captions, labels) → (state, metrics) step.
 
@@ -87,6 +95,9 @@ def make_train_step(
     ``clip_params["text"]``; the trainer gives the int8 branch a bf16 copy
     on the card, whose kernels take bf16). The prompt branch keeps
     ``clip_params`` and full precision: the gradients flow through it.
+    ``adapter``: the adapter trainer's bottleneck, on the prompt path only;
+    with ``adapter_trainable`` the state's params carry it as ``_adapter``
+    (``adapter`` then stands only where they do not).
 
     The returned step takes an optional ``mark(name)`` callback, called at
     the end of each part of the step ("caption", "teacher", "prompt
@@ -96,8 +107,10 @@ def make_train_step(
     caption_clip = {"text": caption_text if caption_text is not None else clip_params["text"]}
 
     def head(params, caption_feats):
-        out, out_local = train_logits_from_features(clip_params, clip_cfg, params, constants,
-                                                    caption_feats, flags)
+        adp = params.get("_adapter", adapter) if adapter_trainable else adapter
+        prompt_params = {k: v for k, v in params.items() if k != "_adapter"}
+        out, out_local = train_logits_from_features(clip_params, clip_cfg, prompt_params,
+                                                    constants, caption_feats, flags, adapter=adp)
         if model_kind == "CustomCLIP":
             return out, None  # global-only variant (ref CustomCLIP :338-352)
         return out, out_local
@@ -155,15 +168,16 @@ def make_train_step(
                     ema_params = ema_update(state.ema_params, state.params, momentum)
                     teacher = head(ema_params, caption_feats)
             mark("teacher")
-            names = list(state.params)
-            params = {k: state.params[k].detach().requires_grad_(True) for k in names}
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in _flatten(state.params).items()}
+            params = _unflatten(leaves)
             out, out_local = head(params, caption_feats)
             mark("prompt forward")
             loss, aux = compute_loss(out, out_local, labels, teacher, captions, params)
             mark("loss")
-            grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
-            grads = {k: torch.zeros_like(params[k]) if g is None else g
-                     for k, g in zip(names, grads)}
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+            grads = _unflatten({k: torch.zeros_like(v) if g is None else g
+                                for (k, v), g in zip(leaves.items(), grads)})
             mark("backward")
             with torch.no_grad():
                 new_params, opt_state = optimizer.update(grads, state.opt_state, state.params)
@@ -172,6 +186,24 @@ def make_train_step(
         return TrainState(state.step + 1, new_params, ema_params, opt_state), metrics
 
     return train_step
+
+
+def _flatten(tree: dict, prefix: tuple = ()) -> dict:
+    """{key path: tensor} of a nested dict of tensors."""
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, prefix + (k,)) if isinstance(v, dict) else {prefix + (k,): v})
+    return out
+
+
+def _unflatten(flat: dict) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
 
 
 def int8_kernel_stack(text: dict, q8: dict):
@@ -202,8 +234,6 @@ class CaptionDistillTrainer:
         self.dataset = dataset if dataset is not None else build_dataset(cfg)
         self.flags = flags_from_config(cfg)
         self.model_name = cfg.TEST.multi_model[0]
-        if cfg.TRAIN.profile_dir:
-            raise NotImplementedError(PROFILE_PENDING)
         if cfg.TRAIN.prefetch_batches:
             raise NotImplementedError("TRAIN.prefetch_batches: device prefetch is not ported "
                                       "(each batch is uploaded inline); leave it at 0")
@@ -334,9 +364,18 @@ class CaptionDistillTrainer:
         sync_every = cfg.TRAIN.sync_every
         if sync_every <= 0:
             sync_every = print_freq if self.device.type == "cuda" else 1
+        # Bounded profiler window (TRAIN.profile_dir): the first epoch's
+        # steps after [1, min(5, last)] (step 0 pays the first use of every
+        # kernel and library), written as a TensorBoard-loadable trace
+        self._prof_cm = None
         try:
             self._train_epochs(start_epoch, meter, writer, sync_every, print_freq)
         finally:
+            # an exception inside the window (the NaN guard) still closes
+            # the profiler, so a later window in the process can open
+            if self._prof_cm is not None:
+                self._prof_cm.__exit__(None, None, None)
+                self._prof_cm = None
             if writer is not None:
                 writer.close()
         print(f"training done in {time.time() - t_start:.1f}s")
@@ -346,10 +385,22 @@ class CaptionDistillTrainer:
         cfg = self.cfg
         max_epoch = cfg.OPTIM.MAX_EPOCH
         steps_per_epoch = self.batcher.steps_per_epoch()
+        profiling = bool(cfg.TRAIN.profile_dir)
+        prof_start = 1 if steps_per_epoch > 1 else 0
+        prof_stop = min(5, steps_per_epoch - 1) if steps_per_epoch > 1 else 0
         for epoch in range(start_epoch, max_epoch):
             t_epoch = time.time()
             for i, batch in enumerate(self.batcher.epoch(epoch)):
                 self.state, metrics = self.train_step(self.state, batch["img"], batch["label"])
+                if profiling and epoch == start_epoch:
+                    if i == prof_start:
+                        self._prof_cm = profiler_trace(cfg.TRAIN.profile_dir)
+                        self._prof_cm.__enter__()
+                    if i == prof_stop and self._prof_cm is not None:
+                        if self.device.type == "cuda":
+                            torch.cuda.synchronize(self.device)
+                        self._prof_cm.__exit__(None, None, None)
+                        self._prof_cm = None
                 n = i + 1
                 if not (n % sync_every == 0 or n % print_freq == 0 or n == steps_per_epoch):
                     continue
@@ -389,30 +440,57 @@ class CaptionDistillTrainer:
         evaluator = MLClassificationEvaluator(self.cfg.TRAINER.GL_merge_rate)
         n = len(self.probe_tokens)
         bs = min(batch_size, n)
+        prompt_params = {k: v for k, v in self.state.params.items() if k != "_adapter"}
+        adp = self.state.params.get("_adapter", getattr(self, "adapter", None))
         with torch.no_grad(), no_tf32():
             for i in range(0, n, bs):
                 chunk = torch.as_tensor(self.probe_tokens[i:i + bs], device=self.device)
                 feats = encode_captions(self.clip_params, self.clip_cfg, chunk, self.flags)
                 out, out_local = train_logits_from_features(
-                    self.clip_params, self.clip_cfg, self.state.params, self.constants, feats,
-                    self.flags)
+                    self.clip_params, self.clip_cfg, prompt_params, self.constants, feats,
+                    self.flags, adapter=adp)
                 evaluator.process(out.float().cpu().numpy(), self.probe_labels[i:i + bs],
                                   out_local.float().cpu().numpy())
         res = evaluator.evaluate()
         print(f"validate probe ({n} held-out captions): {res}")
         return res
 
-    def validate(self) -> dict:
-        """Post-training validation: the held-out caption probe. Scoring the
-        val images (the JAX package's image pass) is not ported; with no val
-        images there is nothing to score either way."""
+    def validate(self, max_images: int = 64, batch_size: int = 8) -> dict:
+        """Post-training validation (the reference's after_train final test
+        / val smoke split, dassl trainer.py:415-436): with TRAIN.probe_holdout
+        set, the held-out caption probe (real mAP); otherwise the val images
+        (``test[::100]``, the first ``max_images``) scored with the CURRENT
+        prompt params by a one-member TTA engine (TEST.multi_scale, crops at
+        the tower's resolution, no caption bank) in batches of
+        ``batch_size``, as the JAX package does. On the unlabeled competition
+        split the labels are zeros, so mAP is 0 by construction: the pass
+        exercises the whole inference path. As in the JAX package, an
+        adapter trainer's image pass scores without its adapter."""
         if self.probe_tokens is not None:
             return self.validate_probe()
-        if not self.dataset.val_images:
+        from ..data.loader import ImageBatcher
+        from ..inference.tta import TTAEngine, build_model_spec
+        from .evaluator import MLClassificationEvaluator
+
+        val_images = self.dataset.val_images[:max_images]
+        if not val_images:
             print("validate: no val images available")
             return {}
-        raise NotImplementedError("validate on val images is not ported yet (ROADMAP.md "
-                                  "queue 1); set TRAIN.probe_holdout for the caption probe")
+        prompt_params = {k: v for k, v in self.state.params.items() if k != "_adapter"}
+        with no_tf32():
+            spec = build_model_spec(self.clip_params, self.clip_cfg, prompt_params,
+                                    self.constants, self.flags)
+        engine = TTAEngine(self.clip_params, self.clip_cfg, {self.model_name: spec},
+                           scales=self.cfg.TEST.multi_scale,
+                           crop_size=self.clip_cfg.image_resolution, device=self.device)
+        evaluator = MLClassificationEvaluator(self.cfg.TRAINER.GL_merge_rate)
+        for images, _ in ImageBatcher(val_images, batch_size):
+            out = engine.run_batch(images)[self.model_name]
+            labels = np.zeros_like(out["output_final"])
+            evaluator.process(out["output_final"], labels, out["output_pos_final"])
+        res = evaluator.evaluate()
+        print(f"validate ({len(val_images)} images): {res}")
+        return res
 
 
 def build_trainer(cfg: Config, clip_params, clip_cfg, **kwargs):
@@ -420,3 +498,43 @@ def build_trainer(cfg: Config, clip_params, clip_cfg, **kwargs):
     cfg.TRAINER.NAME, set by the launchers' --trainer arg)."""
     name = cfg.TRAINER.NAME or "Caption_distill_double"
     return TRAINER_REGISTRY.get(name)(cfg, clip_params, clip_cfg, **kwargs)
+
+
+@TRAINER_REGISTRY.register(name="Caption_distill_double_adapter")
+class CaptionDistillAdapterTrainer(CaptionDistillTrainer):
+    """Adapter trainer variant (ref: trainers/Caption_distill_double_adapter.py
+    :463-627): the prompts are encoded through a residual bottleneck text
+    adapter (models/adapter.py); the captions go through the plain tower.
+
+    The reference freezes its adapter at random init (only 'prompt_learner'
+    params reach the optimizer); TRAINER.adapter_trainable True trains it,
+    as ``_adapter`` in the state's params. The adapter is drawn from a CPU
+    generator seeded with ``cfg.SEED + 1``, or given as ``adapter``. Its
+    step takes the JAX adapter trainer's arguments: the loss switch, the EMA
+    teacher and the caption branch's route, but not the co-occurrence,
+    resample or LMPT artifacts, which the JAX trainer does not pass on
+    either."""
+
+    def __init__(self, cfg: Config, clip_params: dict, clip_cfg: CLIPConfig,
+                 dataset: Optional[CaptionDataset] = None, device=None,
+                 adapter: Optional[dict] = None):
+        super().__init__(cfg, clip_params, clip_cfg, dataset=dataset, device=device)
+        from ..models.adapter import init_adapter_params
+
+        if adapter is None:
+            adapter = init_adapter_params(torch.Generator().manual_seed(cfg.SEED + 1),
+                                          clip_cfg.transformer_width,
+                                          cfg.TRAINER.adapter_reduction)
+        self.adapter = tree_map(lambda t: t.to(self.device), adapter)
+        trainable = dict(self.trainable)
+        if cfg.TRAINER.adapter_trainable:
+            trainable["_adapter"] = self.adapter
+        self.state = create_train_state(trainable, self.optimizer)
+        kw = self._step_kwargs
+        self._step_kwargs = dict(
+            loss_name=kw["loss_name"], model_kind=kw["model_kind"], ema=kw["ema"],
+            momentum=kw["momentum"], caption_q8=kw["caption_q8"],
+            caption_fused=kw["caption_fused"], caption_text=kw["caption_text"],
+            adapter=self.adapter, adapter_trainable=cfg.TRAINER.adapter_trainable)
+        self.train_step = make_train_step(self.clip_params, clip_cfg, self.constants,
+                                          self.optimizer, self.flags, **self._step_kwargs)

@@ -26,7 +26,8 @@ retrieval sims, the dict that ``ops/ensemble.generate_final_answers`` fuses
 independently built check.
 
 Not ported yet (ROADMAP.md): the device mesh and ``shard_bank``, and the
-gather resizer."""
+engine's ``resize_impl="gather"`` option (the gather sampler itself is
+ops/crops.py ``crop_and_resize``)."""
 
 from __future__ import annotations
 

@@ -44,8 +44,10 @@ def _normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tens
 
 def prompt_text_features(clip_params: dict, clip_cfg: CLIPConfig, trainable: dict,
                          constants: dict, flags: DenseFlags,
-                         include_evidence: Optional[bool] = None) -> Dict[str, torch.Tensor]:
-    """Encode the three prompt sets → L2-normalised class embeddings."""
+                         include_evidence: Optional[bool] = None,
+                         adapter: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """Encode the three prompt sets → L2-normalised class embeddings
+    (``adapter``: the adapter trainer's bottleneck, on this path only)."""
     prompts, prompts_neg, prompts_evd = assemble_prompts(
         trainable, constants, neg_prompt_wcls=flags.neg_prompt_wcls)
     heads = clip_cfg.transformer_heads
@@ -54,7 +56,7 @@ def prompt_text_features(clip_params: dict, clip_cfg: CLIPConfig, trainable: dic
 
     def enc(embeds):
         return _normalize(encode_text_embeds(text, embeds, eot, heads,
-                                             impl=flags.attention_impl))
+                                             impl=flags.attention_impl, adapter=adapter))
 
     out = {"pos": enc(prompts), "neg": enc(prompts_neg)}
     if include_evidence if include_evidence is not None else flags.use_evidence:
@@ -157,10 +159,12 @@ def _scaled_product(logit_scale, feat: torch.Tensor, text: torch.Tensor) -> torc
 
 
 def train_logits_from_features(clip_params: dict, clip_cfg: CLIPConfig, trainable: dict,
-                               constants: dict, feats_in: CaptionFeatures, flags: DenseFlags
+                               constants: dict, feats_in: CaptionFeatures, flags: DenseFlags,
+                               adapter: Optional[dict] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(prompt params, frozen caption features) → (logits_global, logits_local)."""
-    feats = prompt_text_features(clip_params, clip_cfg, trainable, constants, flags)
+    feats = prompt_text_features(clip_params, clip_cfg, trainable, constants, flags,
+                                 adapter=adapter)
     logit_scale, tmp_scale = _scales(trainable, flags, train=True)
     logits_global = _scaled_product(logit_scale, feats_in.global_feat, feats["pos"])
     logits_local, _ = _aggregate_local(feats_in.spatial_feats, feats, logit_scale, tmp_scale,

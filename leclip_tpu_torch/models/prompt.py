@@ -141,8 +141,10 @@ def assemble_prompts(trainable: dict, constants: dict, neg_prompt_wcls: bool = T
 
 
 def ema_init(trainable: dict) -> dict:
-    """EMA twin starts as a copy (ref copy_params, :547-552)."""
-    return {k: v.detach().clone() for k, v in trainable.items()}
+    """EMA twin starts as a copy (ref copy_params, :547-552); nested dicts
+    (the adapter trainer's ``_adapter``) are copied leaf by leaf."""
+    return {k: ema_init(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in trainable.items()}
 
 
 def ema_update(ema: dict, trainable: dict, momentum: float) -> dict:
@@ -156,6 +158,9 @@ def ema_update(ema: dict, trainable: dict, momentum: float) -> dict:
     the loss."""
     out = {}
     for k, m in ema.items():
+        if isinstance(m, dict):
+            out[k] = ema_update(m, trainable[k], momentum)
+            continue
         mom = torch.tensor(momentum, dtype=m.dtype).item()  # the constant in m's dtype
         rest = trainable[k].detach() * (1.0 - momentum)
         out[k] = (m.double() * mom + rest.double()).to(m.dtype)

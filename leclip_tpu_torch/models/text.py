@@ -4,7 +4,9 @@
 * ``encode_text_embeds(embeds, eot_idx)`` → same, from pre-built embeddings
 * ``encode_text_sequence(embeds)``        → all projected positions [N, L, E]
 
-The adapter variant waits for the training slice."""
+``adapter=`` inserts the bottleneck adapter (models/adapter.py) as a
+residual over the transformer output before ln_final (the
+AdapterTextEncoder variant, ref Caption_distill_double_adapter.py:99-112)."""
 
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _backbone(params: dict, x: torch.Tensor, n_heads: int, impl: str = "auto",
-              q8: dict = None, fused: bool = False) -> torch.Tensor:
+              q8: dict = None, fused: bool = False, adapter: dict = None) -> torch.Tensor:
     """Embeddings [N, L, W] → post-ln_final features [N, L, W]. ``q8``:
     stacked int8 block weights (ops/quant.py), the W8A8 path with the causal
     mask applied inside the kernels. ``impl`` routes the unfused attention
@@ -51,6 +53,10 @@ def _backbone(params: dict, x: torch.Tensor, n_heads: int, impl: str = "auto",
     x = run_transformer(x.to(stack_dtype), params["blocks"], n_heads,
                         mask=causal_mask(ctx_len, x.device), impl=impl, q8=q8, causal=True,
                         fused=fused).to(x.dtype)
+    if adapter is not None:
+        from .adapter import apply_adapter
+
+        x = x + apply_adapter(x, adapter)
     return layer_norm(x, params["ln_final"]["scale"], params["ln_final"]["bias"])
 
 
@@ -64,9 +70,9 @@ def encode_text_sequence(params: dict, embeds: torch.Tensor, n_heads: int,
 
 def encode_text_embeds(params: dict, embeds: torch.Tensor, eot_idx: torch.Tensor,
                        n_heads: int, impl: str = "auto", q8: dict = None,
-                       fused: bool = False) -> torch.Tensor:
+                       fused: bool = False, adapter: dict = None) -> torch.Tensor:
     """EOT-position features [N, E]; ``eot_idx`` is tokens.argmax(-1)."""
-    x = _backbone(params, embeds, n_heads, impl=impl, q8=q8, fused=fused)
+    x = _backbone(params, embeds, n_heads, impl=impl, q8=q8, fused=fused, adapter=adapter)
     eot = x[torch.arange(x.shape[0], device=x.device), eot_idx.long().to(x.device)]
     return eot @ params["text_projection"].to(x.dtype)
 

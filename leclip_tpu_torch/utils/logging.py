@@ -1,9 +1,8 @@
 """Stdout-tee logger, meters, and reproducible seeding (the port's own copy of
 leclip_tpu/utils/logging.py; capability parity with dassl/utils/logger.py,
-dassl/utils/meters.py and dassl/utils/tools.py:73-78).
-
-The JAX package's ``profiler_trace`` (a jax.profiler window) is not ported
-yet: :func:`profiler_trace` raises for a non-empty log directory."""
+dassl/utils/meters.py and dassl/utils/tools.py:73-78), and
+:func:`profiler_trace`, the trace window of the JAX package's
+``profiler_trace`` on torch.profiler."""
 
 from __future__ import annotations
 
@@ -99,13 +98,22 @@ class MetricMeter:
         )
 
 
-PROFILE_PENDING = ("TRAIN.profile_dir: the torch.profiler trace window is not ported yet "
-                   "(ROADMAP.md queue 1); leave TRAIN.profile_dir empty")
-
-
+@contextlib.contextmanager
 def profiler_trace(logdir: Optional[str]):
-    """A no-op context for an empty ``logdir``; any other raises until the
-    torch.profiler window is ported."""
-    if logdir:
-        raise NotImplementedError(PROFILE_PENDING)
-    return contextlib.nullcontext()
+    """A torch.profiler trace around a region, written into ``logdir`` as a
+    TensorBoard-loadable ``*.pt.trace.json`` (the Chrome trace format that
+    TensorBoard's PyTorch profiler plugin reads); host activity, and the
+    card's kernels where there is one. A no-op when ``logdir`` is empty. The
+    profiler is closed and its trace written if the region raises."""
+    if not logdir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield

@@ -23,6 +23,9 @@ max(1, |ref|) everywhere: a p rounded across a bf16 boundary (its fp32 score
 summed in another order) moves o by 2⁻⁸·(p/l)·|v − o|, which scales with |v|
 and not |o| and is largest in rows with few keys (early causal rows)."""
 
+import os
+import tempfile
+
 import pytest
 import torch
 
@@ -574,3 +577,108 @@ def test_dump_path_on_card_matches_fused_path(card, prec):
     host = generate_final_answers(dumps, sims["sims_blocks_all"])
     assert host.shape == fused.shape == (2, 6)
     assert np.abs(host - fused).max() <= 1e-4 * max(1.0, np.abs(fused).max())
+
+
+@pytest.mark.parametrize("method", ["cubic", "linear"])
+def test_crop_and_resize_on_card_matches_cpu(card, method):
+    """The gather sampler (ops/crops.py) on the card against the CPU: the
+    same fp32 operations (1e-5 of max(1, max|ref|)), chunking and tensor
+    content extents included."""
+    from leclip_tpu_torch.ops.crops import crop_and_resize
+
+    g = torch.Generator().manual_seed(0)
+    img = torch.rand(480, 640, 3, generator=g)
+    boxes = torch.tensor([[-20.0, -30.0, 200.0, 250.0], [100.5, 200.25, 420.0, 610.0],
+                          [300.0, 500.0, 700.0, 900.0], [0.0, 0.0, 480.0, 640.0]])
+    ref = crop_and_resize(img, boxes, 224, method, chunk=2, content_hw=(400, 600))
+    out = crop_and_resize(img.to(card), boxes.to(card), 224, method, chunk=3,
+                          content_hw=(torch.tensor(400, device=card), torch.tensor(600, device=card)))
+    torch.cuda.synchronize()
+    assert out.shape == (4, 224, 224, 3) and torch.isfinite(out).all()
+    assert (out.cpu() - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+def test_validate_batch_on_card_matches_cpu(card):
+    """One validate batch of a small RN trainer (2 JPEG val images, scales
+    (2,)) on the card against the same trainer on the CPU: the evaluator's
+    arrays within 1e-4 of max(1, max|ref|) (an fp32 engine, TF32 off), the
+    images decoded by the native decoder."""
+    import numpy as np
+    from PIL import Image
+
+    from leclip_tpu_torch.data.datasets import CaptionDataset
+    from leclip_tpu_torch.device import tree_map
+    from leclip_tpu_torch.engine import evaluator
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.engine.trainer import CaptionDistillTrainer
+    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
+    from leclip_tpu_torch.runtime import jpeg
+
+    cfg = PRESETS["RN-TEST"]
+    params = init_clip_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for i in range(2):
+            paths.append(os.path.join(d, f"{i}.jpg"))
+            Image.fromarray(rng.integers(0, 255, (96, 128, 3)).astype(np.uint8)).save(paths[-1])
+        toks = np.zeros((16, 77), np.int32)
+        toks[:, 0], toks[:, 1], toks[:, 2] = 49406, rng.integers(1, 49406, 16), 49407
+        ds = CaptionDataset(toks, (rng.random((16, 80)) < 0.1).astype(np.int8),
+                            [p for p in paths for _ in range(100)], ["x"] * 80)
+        tcfg = setup_config(opts=["DATALOADER.BATCH_SIZE_TRAIN", "16", "TRAINER.N_CTX", "4",
+                                  "OUTPUT_DIR", "", "TEST.multi_scale", "(2,)"])
+        got = {}
+        for dev in ("cpu", card):
+            trainer = CaptionDistillTrainer(tcfg, params, cfg, dataset=ds, device=dev)
+            if dev != "cpu":
+                trainer.state = trainer.state._replace(
+                    params=tree_map(lambda t: t.to(card), got["state"].params))
+            else:
+                got["state"] = trainer.state
+            calls = []
+            orig = evaluator.MLClassificationEvaluator.process
+            evaluator.MLClassificationEvaluator.process = \
+                lambda self, o, lab, loc=None: (calls.append((o, loc)), orig(self, o, lab, loc))[1]
+            try:
+                jpeg.reset_decode_counts()
+                trainer.validate()
+            finally:
+                evaluator.MLClassificationEvaluator.process = orig
+            got[str(dev)] = calls
+            assert jpeg.decode_counts()["pil_jpeg"] == 0
+    for (o, loc), (ro, rloc) in zip(got[str(card)], got["cpu"]):
+        for a, r in ((o, ro), (loc, rloc)):
+            assert a.shape == (2, 80) and np.isfinite(a).all()
+            assert np.abs(a - r).max() <= 1e-4 * max(1.0, np.abs(r).max())
+
+
+@pytest.mark.parametrize("name", ["sgd", "adam", "amsgrad", "adamw", "rmsprop", "radam"])
+def test_optimizer_step_on_card_matches_cpu(card, name):
+    """One step of each optimizer of the menu on the card against the CPU
+    (the same fp32 operations; 1e-6 of max(1, max|leaf|)), on a prompt tree
+    with the adapter's nested subtree."""
+    from leclip_tpu_torch.device import tree_map
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.engine.train_state import build_optimizer, create_train_state
+
+    opt = build_optimizer(setup_config(opts=["OPTIM.NAME", name, "OPTIM.WARMUP_EPOCH", "-1"])
+                          .OPTIM, 4)
+    g = torch.Generator().manual_seed(1)
+    params = {"ctx": torch.randn(64, 512, generator=g), "temperature": torch.tensor(3.0),
+              "_adapter": {"down_kernel": torch.randn(512, 128, generator=g)}}
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=g), params)
+    cpu = create_train_state(params, opt)
+    ref, ref_os = opt.update(grads, cpu.opt_state, cpu.params)
+    to_card = lambda t: t.to(card)  # noqa: E731
+    out, out_os = opt.update(tree_map(to_card, grads), tree_map(to_card, cpu.opt_state),
+                             tree_map(to_card, cpu.params))
+    torch.cuda.synchronize()
+
+    def leaves(t):
+        return [x for v in t.values() for x in leaves(v)] if isinstance(t, dict) else [t]
+
+    for a, r in zip(leaves({"p": out, "s": out_os}), leaves({"p": ref, "s": ref_os})):
+        assert a.device.type == "cuda" and a.dtype == r.dtype and a.shape == r.shape
+        tol = 1e-6 * max(1.0, r.abs().max().item())
+        assert (a.cpu().double() - r.double()).abs().max().item() <= tol

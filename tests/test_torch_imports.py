@@ -23,6 +23,10 @@ TRAINING = ("utils/registry.py", "utils/logging.py", "utils/tb_events.py",
 DUMP_AND_SERVING = ("inference/tta.py", "inference/pipeline.py", "data/loader.py",
                     "cli/eval.py", "cli/gen_final_ans.py", "cli/parse_results.py",
                     "cli/build_caption_bank.py", "cli/serve.py")
+# the adapter trainer, the optimizer menu, the native decoder, zero-shot and
+# the caption benchmark
+FLOW = ("models/adapter.py", "engine/train_state.py", "runtime/jpeg.py", "ops/crops.py",
+        "ops/preprocess.py", "cli/zeroshot.py", "inference/caption_eval.py")
 
 
 def _port_files():
@@ -140,3 +144,38 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert CaptionDistillTrainer(tcfg, params, cfg, dataset=ds, device="cpu").device.type == "cpu"
+
+
+def test_flow_modules_are_scanned_and_import_alone():
+    import importlib
+
+    files = _port_files()
+    for rel in FLOW:
+        path = os.path.join(ROOT, "leclip_tpu_torch", rel)
+        assert path in files, rel
+        importlib.import_module("leclip_tpu_torch." + rel[:-3].replace("/", "."))
+
+
+def test_zeroshot_adapter_and_caption_benchmark_raise_without_cuda(no_cuda, tmp_path):
+    from leclip_tpu_torch.cli.zeroshot import main as zeroshot_main
+    from leclip_tpu_torch.data.datasets import CaptionDataset
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.engine.trainer import CaptionDistillAdapterTrainer, build_trainer
+    from leclip_tpu_torch.inference.caption_eval import score_caption_benchmark
+    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
+
+    cfg = PRESETS["RN-TEST"]
+    params = init_clip_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    ds = CaptionDataset(np.zeros((4, 77), np.int32), np.zeros((4, 80), np.int8), [],
+                        ["dog"] * 80)
+    tcfg = setup_config(opts=["OUTPUT_DIR", str(tmp_path),
+                              "TRAINER.NAME", "Caption_distill_double_adapter"])
+    for call in (lambda: CaptionDistillAdapterTrainer(tcfg, params, cfg, dataset=ds),
+                 lambda: build_trainer(tcfg, params, cfg, dataset=ds),
+                 lambda: zeroshot_main(["--backbone", "RN-TEST", "--images-dir", str(tmp_path)]),
+                 lambda: score_caption_benchmark(params, cfg, {}, np.zeros((2, 77), np.int32))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # explicit CPU is honoured
+    tr = build_trainer(tcfg, params, cfg, dataset=ds, device="cpu")
+    assert isinstance(tr, CaptionDistillAdapterTrainer) and tr.device.type == "cpu"

@@ -348,8 +348,7 @@ def test_trainer_routes_the_caption_branch():
         assert np.isfinite(float(aux["loss"])) and state.step == 1
 
 
-@pytest.mark.parametrize("opt", [["TRAIN.profile_dir", "prof"], ["TRAIN.prefetch_batches", "2"]],
-                         ids=["profile_dir", "prefetch_batches"])
+@pytest.mark.parametrize("opt", [["TRAIN.prefetch_batches", "2"]], ids=["prefetch_batches"])
 def test_trainer_refuses_options_it_does_not_run(opt):
     """Options of the JAX trainer that the port does not run raise at
     construction instead of being ignored."""

@@ -135,9 +135,3 @@ def test_sgd_matches_the_optax_chain_for_5_steps(name):
         tree_equal(tp, jp, 1e-6)
         tree_equal(tos, jos, 1e-6)
     assert int(tos["2"]["count"]) == 5
-
-
-def test_other_optimizers_are_not_ported_yet():
-    for name in ("adam", "amsgrad", "adamw", "rmsprop", "radam"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            T.build_optimizer(tsetup(opts=["OPTIM.NAME", name]).OPTIM, 1)
