@@ -1,5 +1,6 @@
-"""Host-side data loading: the caption batcher of training and threaded image
-decode for evaluation (the port's own copy of ``CaptionBatcher``,
+"""Host-side data loading: the caption batcher of training, the (image,
+caption) pair batcher of dual-encoder fine-tuning and threaded image decode
+for evaluation (the port's own copy of ``CaptionBatcher``, ``PairBatcher``,
 ``load_image``, ``image_size`` and ``ImageBatcher`` in
 leclip_tpu/data/loader.py), and the byte-level decoders of the scoring
 service (``decode_bytes_batch`` and ``declared_pixels``, after
@@ -7,7 +8,7 @@ leclip_tpu/runtime/jpeg.py and cli/serve.py). ``ImageBatcher`` and
 ``decode_bytes_batch`` decode JPEGs with the native multithreaded libjpeg
 runtime (runtime/jpeg.py, PIL's output bit for bit) when it is available, as
 the JAX package's do, and everything else with PIL; runtime/jpeg.py counts
-which decoder took each image."""
+which decoder took each image. ``PairBatcher`` decodes the same way."""
 
 from __future__ import annotations
 
@@ -46,6 +47,75 @@ class CaptionBatcher:
                 "img": self.tokens[idx].astype(np.int32),
                 "label": self.labels[idx].astype(np.float32),
             }
+
+
+class PairBatcher:
+    """(image, caption) pairs for dual-encoder fine-tuning: the host decodes
+    the images and zero-pads each into ``bucket``; the augmentation runs on
+    the device inside the train step (ops/preprocess.py
+    ``preprocess_train_batch``).
+
+    Yields {'image_u8': [B, bh, bw, 3] uint8, 'content': [B, 2] int32,
+    'tokens': [B, 77] int32} numpy arrays: the JAX package's per-epoch
+    permutation ``default_rng(seed + epoch)``, the same contiguous slice of
+    it for shard ``shard_index`` of ``num_shards``, and modular indexing, so
+    that the tail and a dataset smaller than a batch still give full
+    batches. Images decode as ``ImageBatcher``'s do: the native decoder
+    where it is available, else a PIL thread pool."""
+
+    def __init__(self, image_paths: Sequence[str], captions: Sequence[str] = None,
+                 tokens: np.ndarray = None, batch_size: int = 64, seed: int = 0,
+                 workers: int = 8, bucket: Tuple[int, int] = (512, 512), shard_index: int = 0,
+                 num_shards: int = 1):
+        if (captions is None) == (tokens is None):
+            raise ValueError("pass captions OR tokens")
+        self.paths = list(image_paths)
+        self.shard_index = shard_index
+        self.num_shards = num_shards
+        if tokens is None:
+            from .tokenizer import tokenize
+
+            tokens = tokenize(list(captions), truncate=True)
+        if len(tokens) != len(self.paths):
+            raise ValueError(f"{len(tokens)} captions for {len(self.paths)} images")
+        self.tokens = np.asarray(tokens, np.int32)
+        self.batch_size = batch_size
+        self.seed = seed
+        self.workers = workers
+        self.bucket = bucket
+        from ..runtime.jpeg import native_available
+
+        self.native = native_available()
+
+    def steps_per_epoch(self) -> int:
+        return max(1, len(self.paths) // self.num_shards // self.batch_size)
+
+    def _decode(self, paths: List[str]) -> List[np.ndarray]:
+        if self.native:
+            from ..runtime.jpeg import decode_batch
+
+            return decode_batch(paths, threads=self.workers)
+        with concurrent.futures.ThreadPoolExecutor(self.workers) as pool:
+            return list(pool.map(load_image, paths))
+
+    def epoch(self, epoch: int) -> Iterator[dict]:
+        from ..inference.tta import pad_to_bucket
+
+        n = len(self.paths)
+        order = np.random.default_rng(self.seed + epoch).permutation(n)
+        if self.num_shards > 1:
+            per = n // self.num_shards
+            order = order[self.shard_index * per: (self.shard_index + 1) * per]
+        bs = self.batch_size
+        for s in range(self.steps_per_epoch()):
+            idx = order[np.arange(s * bs, (s + 1) * bs) % len(order)]
+            padded, content = [], []
+            for im in self._decode([self.paths[i] for i in idx]):
+                p, hw = pad_to_bucket(im, self.bucket)
+                padded.append(p)
+                content.append(hw)
+            yield {"image_u8": np.stack(padded), "content": np.asarray(content, np.int32),
+                   "tokens": self.tokens[idx]}
 
 
 def load_image(path: str) -> np.ndarray:

@@ -85,7 +85,7 @@ def _array_bytes(t) -> bytes:
         shape = list(t.shape)
         raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
     else:
-        a = np.ascontiguousarray(t)
+        a = np.asarray(t)  # not ascontiguousarray, which makes a 0-d array 1-d
         name, shape, raw = a.dtype.name, list(a.shape), a.tobytes("C")
     return _pack([shape, name, raw])
 

@@ -15,7 +15,7 @@ import torch
 
 from ..device import resolve_device
 from .resnet import encode_image_resnet, init_resnet_params
-from .text import init_text_params
+from .text import encode_text, init_text_params
 from .vit import encode_image_vit, init_vit_params
 
 
@@ -133,6 +133,27 @@ def clip_encode_image(params: dict, cfg: CLIPConfig, images: torch.Tensor,
                                 fused=fused)
     return encode_image_resnet(images, params["visual"], cfg.vision_heads, dense=dense,
                                if_pos=if_pos, pool_map=pool_map)
+
+
+def clip_encode_text(params: dict, cfg: CLIPConfig, tokens: torch.Tensor,
+                     sequence: bool = False, impl: str = "auto", remat: bool = False):
+    """Token ids [N, L] → EOT features [N, E] (all positions with
+    ``sequence``); ``remat`` recomputes each text block in the backward
+    pass."""
+    return encode_text(params["text"], tokens, cfg.transformer_heads, impl=impl,
+                       sequence=sequence, remat=remat)
+
+
+def clip_similarity(params: dict, cfg: CLIPConfig, images: torch.Tensor,
+                    tokens: torch.Tensor, impl: str = "auto"):
+    """The contrastive CLIP forward: L2-normalised features, scaled cosine
+    logits both ways → (logits_per_image [B, N], logits_per_text [N, B])."""
+    img = clip_encode_image(params, cfg, images, impl=impl)
+    txt = clip_encode_text(params, cfg, tokens, impl=impl)
+    img = img / img.norm(dim=-1, keepdim=True)
+    txt = txt / txt.norm(dim=-1, keepdim=True)
+    logits_per_image = params["logit_scale"].exp() * img @ txt.t()
+    return logits_per_image, logits_per_image.t()
 
 
 def config_from_state_dict(sd: dict) -> CLIPConfig:

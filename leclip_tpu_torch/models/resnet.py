@@ -24,7 +24,9 @@ are cast to v's dtype before the second product. An fp32 tower runs its
 convolutions and products in full fp32 (TF32 off inside the call, see
 device.no_tf32). The tower holds no hand-written kernel: the convolutions
 are cuDNN's, as the JAX package leaves them to XLA, and the 50-token pool is
-plain PyTorch, as in JAX."""
+plain PyTorch, as in JAX. A bf16 tower's 3x3 convolutions on the last
+stage's grid run in fp32 and round once, so that an image's features do not
+depend on its place in the batch (:func:`conv2d`)."""
 
 from __future__ import annotations
 
@@ -72,10 +74,38 @@ def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+# bf16 k x k convolutions (k > 1) over grids of at most this many positions
+# run in fp32 (see conv2d): cuDNN's bf16 kernels for them give an image
+# other values at another place in the batch
+EXACT_GRID = 7 * 7
+
+
 def conv2d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """x [B, H, W, Cin] → [B, H', W', Cout], padded "SAME" as the JAX conv
     pads (asymmetric pads, such as the stem's (0, 1), by an explicit pad);
-    ``kernel`` [Cout, Cin, kh, kw], cast to x's dtype."""
+    ``kernel`` [Cout, Cin, kh, kw], cast to x's dtype.
+
+    An image's output does not depend on its place in the batch, as the
+    JAX function's does not (a batch of another size may still take other
+    cuDNN kernels). On the H100, cuDNN's bf16 kernel for the 3x3
+    convolutions of the last stage (7x7 grid, 512 channels, RN50 at 224²)
+    sums an image's products differently at another place in the batch;
+    its kernels for every other convolution of the tower do not. So a bf16
+    k x k convolution over at most ``EXACT_GRID`` positions runs in fp32 on
+    the exactly widened bf16 values, TF32 off, and is rounded to bf16 once
+    after the sum: JAX's single rounding point, as the fp32 tower (which is
+    position independent) computes it. chip_smoke.py holds every
+    convolution of the trunk to it on the card, at batches of 2,440 and
+    610 crops (8 and 2 images of 305)."""
+    if (x.dtype == torch.bfloat16 and kernel.shape[-1] > 1
+            and x.shape[1] * x.shape[2] <= EXACT_GRID):
+        with _no_tf32():
+            return conv2d_native(x.float(), kernel.float(), stride).to(x.dtype)
+    return conv2d_native(x, kernel, stride)
+
+
+def conv2d_native(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """:func:`conv2d` by cuDNN in x's dtype for every shape."""
     kh, kw = kernel.shape[-2:]
     (top, bottom), (left, right) = (_same_pads(x.shape[1], kh, stride),
                                     _same_pads(x.shape[2], kw, stride))

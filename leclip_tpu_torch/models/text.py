@@ -38,12 +38,14 @@ def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _backbone(params: dict, x: torch.Tensor, n_heads: int, impl: str = "auto",
-              q8: dict = None, fused: bool = False, adapter: dict = None) -> torch.Tensor:
+              q8: dict = None, fused: bool = False, adapter: dict = None,
+              remat: bool = False) -> torch.Tensor:
     """Embeddings [N, L, W] → post-ln_final features [N, L, W]. ``q8``:
     stacked int8 block weights (ops/quant.py), the W8A8 path with the causal
     mask applied inside the kernels. ``impl`` routes the unfused attention
     (ops/attention.py; "pallas" runs the flash kernel under the causal
-    mask)."""
+    mask). ``remat`` recomputes each block in the backward pass
+    (models/transformer.py)."""
     ctx_len = x.shape[1]
     x = x + params["positional_embedding"][:ctx_len].to(x.dtype)
     # the int8 stack runs in the dtype of its LN affines (bf16 where the
@@ -52,7 +54,7 @@ def _backbone(params: dict, x: torch.Tensor, n_heads: int, impl: str = "auto",
     stack_dtype = x.dtype if q8 is None else q8["ln1"][0].dtype
     x = run_transformer(x.to(stack_dtype), params["blocks"], n_heads,
                         mask=causal_mask(ctx_len, x.device), impl=impl, q8=q8, causal=True,
-                        fused=fused).to(x.dtype)
+                        fused=fused, remat=remat).to(x.dtype)
     if adapter is not None:
         from .adapter import apply_adapter
 
@@ -62,27 +64,31 @@ def _backbone(params: dict, x: torch.Tensor, n_heads: int, impl: str = "auto",
 
 def encode_text_sequence(params: dict, embeds: torch.Tensor, n_heads: int,
                          impl: str = "auto", q8: dict = None,
-                         fused: bool = False) -> torch.Tensor:
+                         fused: bool = False, remat: bool = False) -> torch.Tensor:
     """All projected token features [N, L, E] (texts-as-images)."""
-    x = _backbone(params, embeds, n_heads, impl=impl, q8=q8, fused=fused)
+    x = _backbone(params, embeds, n_heads, impl=impl, q8=q8, fused=fused, remat=remat)
     return x @ params["text_projection"].to(x.dtype)
 
 
 def encode_text_embeds(params: dict, embeds: torch.Tensor, eot_idx: torch.Tensor,
                        n_heads: int, impl: str = "auto", q8: dict = None,
-                       fused: bool = False, adapter: dict = None) -> torch.Tensor:
+                       fused: bool = False, adapter: dict = None,
+                       remat: bool = False) -> torch.Tensor:
     """EOT-position features [N, E]; ``eot_idx`` is tokens.argmax(-1)."""
-    x = _backbone(params, embeds, n_heads, impl=impl, q8=q8, fused=fused, adapter=adapter)
+    x = _backbone(params, embeds, n_heads, impl=impl, q8=q8, fused=fused, adapter=adapter,
+                  remat=remat)
     eot = x[torch.arange(x.shape[0], device=x.device), eot_idx.long().to(x.device)]
     return eot @ params["text_projection"].to(x.dtype)
 
 
 def encode_text(params: dict, tokens: torch.Tensor, n_heads: int, impl: str = "auto",
-                sequence: bool = False, q8: dict = None, fused: bool = False) -> torch.Tensor:
+                sequence: bool = False, q8: dict = None, fused: bool = False,
+                remat: bool = False) -> torch.Tensor:
     """Token ids [N, L] → EOT feature [N, E] (or all positions if sequence)."""
     embeds = embed_tokens(params, tokens)
     if sequence:
-        return encode_text_sequence(params, embeds, n_heads, impl=impl, q8=q8, fused=fused)
+        return encode_text_sequence(params, embeds, n_heads, impl=impl, q8=q8, fused=fused,
+                                    remat=remat)
     return encode_text_embeds(params, embeds, tokens.argmax(-1), n_heads, impl=impl, q8=q8,
-                              fused=fused)
+                              fused=fused, remat=remat)
 

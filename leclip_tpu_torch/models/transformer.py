@@ -1,12 +1,16 @@
 """Shared transformer machinery (counterpart of leclip_tpu/models/transformer.py):
 pre-LN residual blocks over [B, T, D], layers stacked along a leading axis
-and applied by a Python loop (the JAX package's ``lax.scan``)."""
+and applied by a Python loop (the JAX package's ``lax.scan``). ``remat``
+checkpoints each block (``torch.utils.checkpoint``, the JAX package's
+``jax.checkpoint`` of the scanned body): its activations are recomputed in
+the backward pass instead of kept."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import _matmul, multi_head_attention
 
@@ -111,16 +115,22 @@ def run_transformer(x: torch.Tensor, stacked: dict, n_heads: int,
                     mask: Optional[torch.Tensor] = None, impl: str = "auto",
                     kv_len: Optional[int] = None,
                     q8: Optional[dict] = None, causal: bool = False,
-                    fused: bool = False) -> torch.Tensor:
+                    fused: bool = False, remat: bool = False) -> torch.Tensor:
     """Apply the L stacked residual blocks in order. ``q8`` is the stacked
     int8 weight pytree of ops/quant.py ``quantize_block_stack``; layer ``i``
-    of it goes with layer ``i`` of ``stacked``."""
+    of it goes with layer ``i`` of ``stacked``. ``remat`` recomputes each
+    block in the backward pass (non-reentrant checkpoint); the values and
+    gradients are those without it."""
     n_layers = stacked["ln_1"]["scale"].shape[0]
     for i in range(n_layers):
-        x = residual_block(x, layer_params(stacked, i), n_heads, mask=mask, impl=impl,
-                           kv_len=kv_len,
-                           q8=None if q8 is None else layer_params(q8, i),
-                           causal=causal, fused=fused)
+        lp = layer_params(stacked, i)
+        lq = None if q8 is None else layer_params(q8, i)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(residual_block, x, lp, n_heads, mask, impl, kv_len, lq, causal,
+                           fused, use_reentrant=False)
+        else:
+            x = residual_block(x, lp, n_heads, mask=mask, impl=impl, kv_len=kv_len, q8=lq,
+                               causal=causal, fused=fused)
     return x
 
 

@@ -82,8 +82,33 @@ def crop_and_resize_matmul_batch(images: torch.Tensor, boxes: torch.Tensor,
     h = content_hw[0] if content_hw is not None else H
     w = content_hw[1] if content_hw is not None else W
     ry, rx = _matrices(boxes, h, w, H, W, out_size, antialias, images.dtype)
+    return _resample(images, ry, rx)
+
+
+def crop_and_resize_matmul_per_image(images: torch.Tensor, boxes: torch.Tensor,
+                                     content_hw: torch.Tensor, out_size: int = 224,
+                                     antialias: bool = True) -> torch.Tensor:
+    """Per-image geometry: image b of [B, H, W, C], whose true extent is
+    ``content_hw[b]`` (h, w), resampled over its own box ``boxes[b]`` →
+    [B, out, out, C] (the JAX package's ``crop_and_resize_matmul`` mapped
+    over the images, one box each)."""
+    B, H, W, C = images.shape
+    hw = torch.as_tensor(content_hw, dtype=torch.float32, device=images.device)
+    ry, rx = _matrices(boxes, hw[:, 0, None, None], hw[:, 1, None, None], H, W, out_size,
+                       antialias, images.dtype)
+    return _resample(images, ry[:, None], rx[:, None])[:, 0]
+
+
+def _resample(images: torch.Tensor, ry: torch.Tensor, rx: torch.Tensor) -> torch.Tensor:
+    """The two products: images [B, H, W, C] with ry [N, O, H] and rx
+    [N, O, W] shared by the batch, or [B, N, O, H] and [B, N, O, W] per
+    image → [B, N, O, O, C]. The rows pass runs over the channel-major
+    image, then the columns pass; each accumulates in fp32 and rounds to
+    the image dtype."""
+    B, H, W, C = images.shape
+    per = "b" if ry.dim() == 4 else ""
     img_cw = images.permute(0, 3, 2, 1).reshape(B, C * W, H)
-    tmp = torch.einsum("noh,bxh->bnox", ry.float(), img_cw.float()).to(images.dtype)
-    tmp = tmp.reshape(B, -1, out_size, C, W)
-    out = torch.einsum("bnocw,npw->bnopc", tmp.float(), rx.float())
+    tmp = torch.einsum(f"{per}noh,bxh->bnox", ry.float(), img_cw.float()).to(images.dtype)
+    tmp = tmp.reshape(B, -1, ry.shape[-2], C, W)
+    out = torch.einsum(f"bnocw,{per}npw->bnopc", tmp.float(), rx.float())
     return out.to(images.dtype)

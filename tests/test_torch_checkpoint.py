@@ -148,3 +148,16 @@ def test_port_trainer_resumed_from_jax_continues_its_trajectory(tmp_path):
             np.testing.assert_allclose(a[k], b[k], rtol=0,
                                        atol=1e-5 * max(1.0, float(np.abs(b[k]).max())),
                                        err_msg=f"step {i} {k}")
+
+
+def test_codec_packs_numpy_leaves_as_flax_does():
+    """numpy leaves (the fine-tuner's checkpoints pass its tree through
+    ``to_jax_params``): a 0-d array keeps shape (), a transposed one is
+    written in C order, the same bytes as flax writes."""
+    tree = {"s": np.asarray(2.5, np.float32), "n": np.asarray(7, np.int32),
+            "t": np.arange(6, dtype=np.float32).reshape(2, 3).T}
+    data = flax_msgpack.packb(tree)
+    assert data == serialization.msgpack_serialize(tree)
+    back = flax_msgpack.unpackb(data)
+    assert tuple(back["s"].shape) == () and tuple(back["n"].shape) == ()
+    np.testing.assert_array_equal(back["t"].numpy(), tree["t"])

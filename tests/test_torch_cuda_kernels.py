@@ -682,3 +682,116 @@ def test_optimizer_step_on_card_matches_cpu(card, name):
         assert a.device.type == "cuda" and a.dtype == r.dtype and a.shape == r.shape
         tol = 1e-6 * max(1.0, r.abs().max().item())
         assert (a.cpu().double() - r.double()).abs().max().item() <= tol
+
+
+def test_rn50_bf16_trunk_ignores_the_batch_order_on_card(card):
+    """RN50's bf16 trunk on one batch of 8 images x 305 crops (the witness's
+    shape, where cuDNN's bf16 kernels for the 7x7-grid 3x3 convolutions sum
+    an image's products differently at another place in the batch), as
+    given and with the images reversed: each image's trunk map bit for bit
+    the same (models/resnet.py conv2d runs those convolutions in fp32)."""
+    from leclip_tpu_torch.device import cast_floating, tree_map
+    from leclip_tpu_torch.models.clip import PRESETS
+    from leclip_tpu_torch.models.resnet import init_resnet_params, resnet_features
+
+    cfg = PRESETS["RN50"]
+    g = torch.Generator().manual_seed(3)
+    vis = _random_bn(init_resnet_params(g, cfg.vision_layers, cfg.embed_dim,
+                                        cfg.image_resolution, cfg.vision_width, device="cpu"), g)
+    vis = tree_map(lambda t: t.to(card), cast_floating(vis, torch.bfloat16))
+    x = torch.rand(8, 305, 224, 224, 3, generator=torch.Generator(device=card).manual_seed(4),
+                   device=card).to(torch.bfloat16)
+    with torch.inference_mode():
+        given = resnet_features(x.flatten(0, 1), vis)
+        rev = resnet_features(x.flip(0).flatten(0, 1), vis)
+    rev = rev.reshape((8, 305) + tuple(rev.shape[1:])).flip(0).flatten(0, 1)
+    assert torch.isfinite(given.float()).all()
+    assert torch.equal(given, rev), (given.float() - rev.float()).abs().max().item()
+
+
+def test_resident_gradient_at_the_finetune_shape(card):
+    """resident_attention under autograd at ViT-B/16's fine-tune shape
+    ([64, 200, 768] fp32, kv_len 197), q/k/v the thirds of one packed leaf:
+    the output within 2e-5 of its plain version, dq/dk/dv equal to autograd
+    through packed_attention_reference (the backward recomputes it)."""
+    w = 768
+    qkv = _randn(card, (64, 200, 3 * w), torch.float32, 21).requires_grad_()
+    cot = _randn(card, (64, 200, w), torch.float32, 22)
+    before = fa.resident_attention.launches
+    out, got, want = None, None, None
+    for fn in (fa.resident_attention, fa.packed_attention_reference):
+        q, k, v = qkv.split(w, dim=-1)
+        o = fn(q, k, v, 12, 197)
+        grads = torch.autograd.grad(o, (q, k, v), cot)
+        if out is None:
+            out, got = o, grads
+        else:
+            want = grads
+    assert fa.resident_attention.launches == before + 1  # the backward launches nothing
+    plain = fa.resident_attention_plain(*(y.detach() for y in qkv.split(w, dim=-1)), 12, 197)
+    assert (out.detach() - plain).abs().max().item() <= 2e-5
+    for g_, r in zip(got, want):
+        torch.testing.assert_close(g_, r, rtol=0, atol=1e-6)
+
+
+def _path_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _path_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def test_vit_finetune_step_on_card_matches_the_xla_route(card):
+    """Two ViT-B/16 fp32 train_steps (batch 8, remat on the text tower) on
+    the "auto" route, resident_attention in each of the 12 image layers,
+    against the same steps with attention_impl="xla" (the kernel's fp32 sums
+    in another order). Before each step, both routes' gradients at the same
+    parameters within 1e-4 of each leaf's largest; after it, loss and
+    gradient norm within 1e-4 relative, and the parameters' change from the
+    start within 1e-3 in norm. The change is held in norm: an element whose
+    gradient is near Adam's eps (1e-8) steps by lr·g/eps, so there a
+    rounding of ~1e-9 in the gradient shows as a tenth of a step. The key
+    third of each qkv_bias is left out of it: its gradient is 0 in exact
+    arithmetic (a softmax ignores a shift of every logit of a row), so Adam
+    turns each route's rounding noise there into a step of its own."""
+    from leclip_tpu_torch.engine.finetune import CLIPFineTuner
+    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
+    from leclip_tpu_torch.ops import launches
+
+    cfg = PRESETS["ViT-B/16"]
+    params = init_clip_params(torch.Generator(device=card).manual_seed(5), cfg, device=card)
+    images = _randn(card, (8, 224, 224, 3), torch.float32, 6)
+    toks = torch.zeros(8, 77, dtype=torch.int32, device=card)
+    toks[:, 0], toks[:, 1:6], toks[:, 6] = 49406, 1000, 49407
+    toks[:, 1] = torch.arange(8, device=card) + 300
+    tuners = {impl: CLIPFineTuner(params, cfg, lr=1e-5, warmup_steps=0, total_steps=10,
+                                  attention_impl=impl, device=card)
+              for impl in ("auto", "xla")}
+    start = dict(_path_leaves(tuners["xla"].state.params))
+    for _ in range(2):
+        ga, gx = (dict(_path_leaves(t._loss_and_grads(tuners["auto"].state.params, images,
+                                                      toks)[2])) for t in tuners.values())
+        for k in gx:
+            assert (ga[k] - gx[k]).abs().max() <= 1e-4 * gx[k].abs().max(), k
+        out = {}
+        for impl, t in tuners.items():
+            launches.reset_launch_counts()
+            t.state, m = t.train_step(t.state, images, toks)
+            torch.cuda.synchronize()
+            out[impl] = (m, launches.launch_counts()["resident_attention"])
+        (ma, na), (mx, nx) = out["auto"], out["xla"]
+        assert (na, nx) == (12, 0)
+        for key in ("loss", "grad_norm"):
+            assert abs(ma[key].item() - mx[key].item()) <= 1e-4 * abs(mx[key].item()), key
+        pa = dict(_path_leaves(tuners["auto"].state.params))
+        px = dict(_path_leaves(tuners["xla"].state.params))
+        gap, ref = 0.0, 0.0
+        for k in px:
+            d, dx = pa[k] - px[k], px[k] - start[k]
+            if k.endswith("qkv_bias"):
+                w = d.shape[-1] // 3
+                d[..., w:2 * w] = 0
+            gap += d.square().sum().item()
+            ref += dx.square().sum().item()
+        assert gap ** 0.5 <= 1e-3 * ref ** 0.5

@@ -27,6 +27,11 @@ DUMP_AND_SERVING = ("inference/tta.py", "inference/pipeline.py", "data/loader.py
 # the caption benchmark
 FLOW = ("models/adapter.py", "engine/train_state.py", "runtime/jpeg.py", "ops/crops.py",
         "ops/preprocess.py", "cli/zeroshot.py", "inference/caption_eval.py")
+# dual-encoder fine-tuning and the rest of the JAX package's breadth
+FINETUNE = ("engine/finetune.py", "models/gcn.py", "models/zoo.py", "ops/randaugment.py",
+            "ops/autoaugment.py", "ops/_aa_policies.py", "ops/quant_stress.py",
+            "data/synth_images.py", "data/gen_captions.py", "cli/gen_captions.py",
+            "data/loader.py", "models/transformer.py")
 
 
 def _port_files():
@@ -179,3 +184,24 @@ def test_zeroshot_adapter_and_caption_benchmark_raise_without_cuda(no_cuda, tmp_
     # explicit CPU is honoured
     tr = build_trainer(tcfg, params, cfg, dataset=ds, device="cpu")
     assert isinstance(tr, CaptionDistillAdapterTrainer) and tr.device.type == "cpu"
+
+
+def test_finetune_modules_are_scanned_and_import_alone():
+    import importlib
+
+    files = _port_files()
+    for rel in FINETUNE:
+        path = os.path.join(ROOT, "leclip_tpu_torch", rel)
+        assert path in files, rel
+        importlib.import_module("leclip_tpu_torch." + rel[:-3].replace("/", "."))
+
+
+def test_finetuner_raises_without_cuda(no_cuda):
+    from leclip_tpu_torch.engine.finetune import CLIPFineTuner
+    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
+
+    cfg = PRESETS["ViT-TEST"]
+    params = init_clip_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CLIPFineTuner(params, cfg)
+    assert CLIPFineTuner(params, cfg, device="cpu").device.type == "cpu"

@@ -94,6 +94,44 @@ def test_resnet_features_matches_jax(params):
     _close(out, ref, 1e-4)
 
 
+def test_bf16_trunk_matches_jax_and_ignores_the_batch_order(params):
+    """The bf16 trunk (RN-TEST at 64²: its layer3 and layer4 3x3
+    convolutions, on 4x4 and 2x2 grids, take the fp32 route of conv2d)
+    against JAX's bf16 trunk on the same bf16 weights: within 8 bf16
+    epsilons (2^-8) of max(1, max|ref|), since each of the ~20 layers rounds
+    its output to bf16 as JAX's does, after sums in another order. An
+    image's trunk map is the same, bit for bit, with the batch reversed."""
+    from leclip_tpu_torch.device import cast_floating
+
+    x = _x((4, 64, 64, 3), 4)
+    jv = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), params["visual"])
+    ref = np.asarray(jres.resnet_features(jnp.asarray(x, jnp.bfloat16), jv).astype(jnp.float32))
+    tv = cast_floating(to_port(params["visual"]), torch.bfloat16)
+    xt = torch.tensor(x).to(torch.bfloat16)
+    out = tres.resnet_features(xt, tv)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == ref.shape
+    err = np.abs(out.float().numpy() - ref).max()
+    assert err <= 8 * 2.0 ** -8 * max(1.0, np.abs(ref).max()), err
+    rev = tres.resnet_features(xt.flip(0), tv).flip(0)
+    assert torch.equal(rev, out)
+
+
+@pytest.mark.parametrize("grid,exact", [((7, 7), True), ((4, 5), True), ((8, 8), False)])
+def test_bf16_small_grid_convs_run_in_fp32(grid, exact):
+    """A bf16 k x k convolution over at most EXACT_GRID positions is the fp32
+    convolution of the widened values, rounded once to bf16; 1x1
+    convolutions and larger grids stay in bf16 (conv2d_native)."""
+    x = torch.tensor(_x((3,) + grid + (8,), 5)).to(torch.bfloat16)
+    w3 = tres.from_hwio(torch.tensor(_conv((3, 3, 8, 6), 6))).to(torch.bfloat16)
+    w1 = tres.from_hwio(torch.tensor(_conv((1, 1, 8, 6), 7))).to(torch.bfloat16)
+    widened = tres.conv2d_native(x.float(), w3.float()).to(torch.bfloat16)
+    want = widened if exact else tres.conv2d_native(x, w3)
+    assert torch.equal(tres.conv2d(x, w3), want)
+    assert torch.equal(tres.conv2d(x, w1), tres.conv2d_native(x, w1))
+    f32 = torch.tensor(_x((2, 7, 7, 8), 8))
+    assert torch.equal(tres.conv2d(f32, w3.float()), tres.conv2d_native(f32, w3.float()))
+
+
 @pytest.mark.parametrize("global_only", [True, False])
 @pytest.mark.parametrize("if_pos", [True, False])
 def test_attention_pool_matches_jax(params, global_only, if_pos):

@@ -70,6 +70,23 @@ def test_crop_and_resize_matmul_batch_matches(antialias):
     np.testing.assert_allclose(one.numpy(), np.asarray(ref[1]), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("antialias", [True, False])
+def test_crop_and_resize_matmul_per_image_matches(antialias):
+    """Each image its own content size and box, against the JAX resampler
+    run on that image alone (1e-5: fp32 sums in another order)."""
+    rng = np.random.default_rng(4)
+    imgs = rng.random((3, 48, 64, 3)).astype(np.float32)
+    content = np.array([[48, 64], [30, 50], [41, 27]], np.int32)
+    boxes = np.array([[0, 0, 48, 64], [3.5, 2.0, 29.0, 40.5], [10, 1, 30, 26]], np.float32)
+    out = trm.crop_and_resize_matmul_per_image(torch.tensor(imgs), torch.tensor(boxes),
+                                               torch.tensor(content), 24, antialias)
+    assert out.shape == (3, 24, 24, 3)
+    for i in range(3):
+        ref = jrm.crop_and_resize_matmul(jnp.asarray(imgs[i]), jnp.asarray(boxes[i:i + 1]), 24,
+                                         antialias, content_hw=jnp.asarray(content[i]))[0]
+        np.testing.assert_allclose(out[i].numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
 def test_fusion_math_matches():
     rng = np.random.default_rng(2)
     data = rng.standard_normal((3, 40, 8)).astype(np.float32)
