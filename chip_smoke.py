@@ -127,6 +127,26 @@ Phases (any failure exits non-zero and prints no result line):
      step split by CUDA events (augmentation, each tower's forward and
      backward, loss, optimizer) with images/s and peak memory; RN101 at
      batch 32, 2 steps with the loss falling.
+ 10. the data mesh (leclip_tpu_torch/parallel/): torchrun --standalone
+     starts chip_smoke.py --phase10 as NCCL ranks, one a card (world 1 on
+     one card; worlds 2 and 4 only where the machine has that many cards,
+     "not run" printed otherwise: NCCL refuses two ranks on one card). Each
+     rank joins the group from torchrun's variables and drives the real
+     entry points: CaptionDistillTrainer on the mesh (RN50 text tower, bf16
+     caption branch on attn_block_bf16 + mlp_bf16, 4 steps of 1024 captions
+     a rank): prefetch 2 bitwise equal to the inline loop, the ranks'
+     parameters bitwise equal, at world 1 bitwise equal to a trainer
+     without a process group, a rank-0 checkpoint and a resume;
+     CLIPFineTuner on the mesh (ViT-B/16 fp32, 2 steps of 64 pairs a rank,
+     the loss over the global batch, resident_attention in every image
+     layer): prefetch 2 bitwise equal, the ranks equal, at world 1 within
+     phase 9's bounds of the tuner without a group; make_engine(TEST.PREC
+     auto -> int8, mesh, shard_bank=True) on an 8,192-row int8 bank
+     against the engine without a mesh (within 1e-4; the same int8
+     codes), its launches counted, and the ring retrieval timed against
+     the replicated one. The ranks' launch counts join the kernels line.
+     ``python3 chip_smoke.py --only-phase10`` builds the kernels and runs
+     this phase alone, without the result lines.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 
@@ -3345,6 +3365,352 @@ def phase_finetune(card, fa):
     return counts, res
 
 
+# ------------------------------ phase 10 -------------------------------------
+# The data mesh (leclip_tpu_torch/parallel/): the real entry points as NCCL
+# ranks started by torchrun, one a card. NCCL refuses two ranks on one card,
+# so one card runs world 1 (every collective still goes through NCCL);
+# world 2 runs where the machine has two cards. The cross-rank arithmetic of
+# world 2 and 4 is held on the CPU over gloo by tests/test_torch_multigpu.py.
+
+MESH_TRAIN_STEPS = 4       # a rank's steps an epoch at batch 1024
+MESH_TRAIN_BATCH = 1024
+MESH_FT_STEPS = 2
+MESH_SCORE_BATCHES = 3
+MESH_TIMEOUT_S = 420       # the torchrun launch, world 1 and world 2 each
+
+
+def mesh_trainer_part(mesh, card, shared):
+    """CaptionDistillTrainer on the mesh: the RN50 text tower (12x512, fp32
+    weights from a seed) under TRAINER.PREC bf16, whose caption branch runs
+    attn_block_bf16 + mlp_bf16, MESH_TRAIN_STEPS steps of MESH_TRAIN_BATCH
+    captions a rank: prefetch 0 (the launches counted), prefetch 2 (bitwise
+    the same parameters), prefetch 0 again, at world 1 a trainer without a
+    process group (bitwise the same: the all-reduce of one rank is the
+    identity), the ranks' parameters gathered and compared bit for bit, the
+    checkpoints rank 0 alone writes into the ranks' ``shared`` directory, and
+    a fresh mesh trainer that resumes from them."""
+    from leclip_tpu_torch.data.datasets import CaptionDataset
+    from leclip_tpu_torch.data.vocab import COCO_OBJECT_CATEGORIES
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.engine.trainer import CaptionDistillTrainer
+    from leclip_tpu_torch.models.clip import PRESETS
+    from leclip_tpu_torch.models.text import init_text_params
+    from leclip_tpu_torch.ops import launches
+    from leclip_tpu_torch.parallel.mesh import fetch_global, local_mesh
+
+    clip_cfg = PRESETS["RN50"]
+    text = init_text_params(torch.Generator(device=DEVICE).manual_seed(100), clip_cfg.vocab_size,
+                            clip_cfg.context_length, clip_cfg.transformer_width,
+                            clip_cfg.transformer_layers, clip_cfg.embed_dim, device=DEVICE)
+    toks = synthetic_captions(MESH_TRAIN_STEPS * MESH_TRAIN_BATCH * mesh.world,
+                              np.random.default_rng(100))
+    dataset = CaptionDataset(toks, caption_labels(toks), [], list(COCO_OBJECT_CATEGORIES))
+    recipe = TRAIN_RECIPE + ["TRAINER.PREC", "bf16", "OPTIM.MAX_EPOCH", "1",
+                             "TRAIN.CHECKPOINT_FREQ", "1",
+                             "DATALOADER.BATCH_SIZE_TRAIN", str(MESH_TRAIN_BATCH)]
+
+    def run(tag, extra, mesh_, resume=False):
+        out = os.path.join(shared, "resumed" if resume else tag.replace(" ", "_"))
+        cfg = setup_config(opts=recipe + extra + ["OUTPUT_DIR", out,
+                                                  "RESUME", os.path.join(shared, "prefetch_0")])
+        trainer = CaptionDistillTrainer(cfg, {"text": text}, clip_cfg, dataset=dataset, mesh=mesh_)
+        if trainer.caption_route != "bf16" or trainer.batcher.num_shards != mesh_.world:
+            raise AssertionError(f"[mesh:train] {tag}: caption branch {trainer.caption_route}, "
+                                 f"{trainer.batcher.num_shards} shards")
+        launches.reset_launch_counts()
+        torch.cuda.synchronize(DEVICE)
+        t0 = time.perf_counter()
+        state = trainer.train(resume=resume)
+        torch.cuda.synchronize(DEVICE)
+        return state, time.perf_counter() - t0, launches.launch_counts(), out
+
+    run("warm-up", [], mesh)  # first use of every kernel and library
+    s0, t_inline, counts, out0 = run("prefetch 0", [], mesh)
+    expect_launches("[mesh:train] prefetch 0", counts, "bf16", 12 * MESH_TRAIN_STEPS)
+    s2, t_pre, _, _ = run("prefetch 2", ["TRAIN.prefetch_batches", "2"], mesh)
+    s0b, t_inline2, _, _ = run("prefetch 0 again", [], mesh)
+    same_prefetch = trees_equal(s2.params, s0.params) and trees_equal(s0b.params, s0.params)
+    flat = torch.cat(flat_tree(s0.params))
+    ranks = fetch_global(flat[None], mesh)
+    same_ranks = bool((ranks == ranks[0]).all()) and bool(np.isfinite(ranks).all())
+    same_plain = None
+    if mesh.world == 1:
+        sp, _, _, _ = run("no process group", [], local_mesh(DEVICE))
+        same_plain = trees_equal(sp.params, s0.params)
+    ckpts = sorted(os.listdir(os.path.join(out0, "prompt_learner")))
+    # a fresh trainer resumes from the rank-0 checkpoint: epoch 1 of 2
+    s_res, _, _, _ = run("resume", ["OPTIM.MAX_EPOCH", "2"], mesh, resume=True)
+    ms = lambda secs: 1e3 * secs / MESH_TRAIN_STEPS  # noqa: E731
+    log(f"[mesh:train] RN50 text 12x512, caption branch bf16, {MESH_TRAIN_STEPS} steps of "
+        f"{MESH_TRAIN_BATCH} captions a rank (global {MESH_TRAIN_BATCH * mesh.world}), world "
+        f"{mesh.world} over NCCL: train() {ms(t_inline):.2f} / {ms(t_inline2):.2f} ms a step "
+        f"inline (before / after), {ms(t_pre):.2f} ms with prefetch 2 (one checkpoint write "
+        f"in each), on {card}; prefetch 2 bitwise equal: {same_prefetch}; ranks bitwise "
+        f"equal: {same_ranks}; equal to the trainer without a process group: {same_plain}; "
+        f"rank-0 checkpoints {ckpts}; resumed at epoch 1 to step {s_res.step}; launches "
+        f"{counts}")
+    if not (same_prefetch and same_ranks and same_plain in (None, True)
+            and s_res.step == 2 * MESH_TRAIN_STEPS):
+        raise AssertionError("[mesh:train] the data-parallel trainer failed a check")
+    if ckpts != ["checkpoint", "model.ckpt-0"]:
+        raise AssertionError(f"[mesh:train] rank 0 wrote {ckpts}")
+    return counts, dict(ms_inline=ms(t_inline), ms_inline_again=ms(t_inline2),
+                        ms_prefetch=ms(t_pre), prefetch_bitwise=same_prefetch,
+                        ranks_bitwise=same_ranks, plain_bitwise=same_plain)
+
+
+def mesh_finetune_part(mesh, card):
+    """CLIPFineTuner on the mesh: ViT-B/16 fp32, MESH_FT_STEPS steps of
+    FT_BATCH pairs a rank with the loss over the global batch (features
+    gathered with their gradient, the gradient all-reduced), resident_attention
+    in every image layer: fit() with prefetch 0 (launches counted) and
+    prefetch 2 (bitwise the same), and at world 1 the same steps without a
+    process group, held to phase 9's bounds (loss and gradient norm within
+    FT_REL, the parameters' change within FT_DREL in norm)."""
+    from leclip_tpu_torch.engine.finetune import CLIPFineTuner
+    from leclip_tpu_torch.models.clip import PRESETS, init_clip_params
+    from leclip_tpu_torch.ops import launches
+    from leclip_tpu_torch.parallel.mesh import fetch_global, local_mesh
+
+    cfg = PRESETS["ViT-B/16"]
+    params = init_clip_params(torch.Generator(device=DEVICE).manual_seed(101), cfg, device=DEVICE)
+    rng = np.random.default_rng(101 + mesh.rank)
+    res_ = cfg.image_resolution
+    batches = [{"image": rng.standard_normal((FT_BATCH, res_, res_, 3)).astype(np.float32),
+                "tokens": synthetic_captions(FT_BATCH, rng)} for _ in range(MESH_FT_STEPS)]
+
+    def run(prefetch, mesh_):
+        tuner = CLIPFineTuner(params, cfg, lr=FT_LR, warmup_steps=0, total_steps=100,
+                              remat=True, mesh=mesh_)
+        metrics = []
+        step = tuner.train_step
+
+        def recording(state, images, tokens):
+            new, m = step(state, images, tokens)
+            metrics.append(m)
+            return new, m
+
+        tuner.train_step = recording
+        launches.reset_launch_counts()
+        torch.cuda.synchronize(DEVICE)
+        t0 = time.perf_counter()
+        state = tuner.fit(iter(batches), log_every=MESH_FT_STEPS, prefetch=prefetch)
+        torch.cuda.synchronize(DEVICE)
+        secs = time.perf_counter() - t0
+        return state, [{k: float(v) for k, v in m.items()} for m in metrics], secs, \
+            launches.launch_counts()
+
+    s0, m0, t_first, counts = run(0, mesh)
+    expect_launches("[mesh:finetune] prefetch 0", counts, "fp32", 12 * MESH_FT_STEPS)
+    s2, m2, t2, _ = run(2, mesh)
+    same_prefetch = trees_equal(s2.params, s0.params) and m2 == m0
+    del s2
+    s0b, _, t0, _ = run(0, mesh)  # inline again, timed warm as the prefetch run is
+    same_prefetch = same_prefetch and trees_equal(s0b.params, s0.params)
+    del s0b
+    flat = torch.cat([t.reshape(-1)[:4096].float() for t in flat_tree(s0.params)])
+    ranks = fetch_global(flat[None], mesh)
+    same_ranks = bool((ranks == ranks[0]).all())
+    gaps = None
+    if mesh.world == 1:
+        sp, mp, _, _ = run(0, local_mesh(DEVICE))
+        # the tuners copy ``params``: it is still every run's start
+        d_rel, e_rel = ft_update_rel(s0.params, sp.params, params)
+        gaps = dict(loss=max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(m0, mp)),
+                    grad_norm=max(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                                  for a, b in zip(m0, mp)),
+                    change_norm=d_rel, change_elem=e_rel,
+                    bitwise=trees_equal(sp.params, s0.params))
+        del sp
+    del s0
+    log(f"[mesh:finetune] ViT-B/16 fp32, {MESH_FT_STEPS} steps of {FT_BATCH} pairs a rank "
+        f"(global {FT_BATCH * mesh.world}), loss over the global batch: fit() "
+        f"{1e3 * t_first / MESH_FT_STEPS:.1f} ms a step inline on first use, then "
+        f"{1e3 * t2 / MESH_FT_STEPS:.1f} ms with prefetch 2 and {1e3 * t0 / MESH_FT_STEPS:.1f} "
+        f"ms inline again (a fresh tuner each), on {card}; losses "
+        f"{[round(m['loss'], 6) for m in m0]}; prefetch 2 bitwise equal: {same_prefetch}; "
+        f"ranks bitwise equal: {same_ranks}; against the tuner without a process group "
+        f"(loss rel, gradient norm rel, change ||d||/||change|| each <= {FT_REL:g} / "
+        f"{FT_REL:g} / {FT_DREL:g}): {gaps}; launches {counts}")
+    if not (same_prefetch and same_ranks and all(np.isfinite(m["loss"]) for m in m0)):
+        raise AssertionError("[mesh:finetune] prefetch or ranks disagree")
+    if gaps is not None and not (gaps["loss"] <= FT_REL and gaps["grad_norm"] <= FT_REL
+                                 and gaps["change_norm"] <= FT_DREL):
+        raise AssertionError("[mesh:finetune] the mesh step strays from the plain step")
+    return counts, dict(ms_first=1e3 * t_first / MESH_FT_STEPS,
+                        ms_inline=1e3 * t0 / MESH_FT_STEPS, ms_prefetch=1e3 * t2 / MESH_FT_STEPS,
+                        prefetch_bitwise=same_prefetch, ranks_bitwise=same_ranks, plain=gaps)
+
+
+def mesh_engine_part(mesh, card):
+    """make_engine under TEST.PREC auto (int8 on the card) with the ViT-B/16
+    weights and six members of phase 3, an 8,192-caption int8 bank
+    row-sharded over the mesh (shard_bank=True, the ring kNN), the int8
+    stack quantized with mesh= (broadcast from rank 0): MESH_SCORE_BATCHES
+    staged batches of N_IMAGES 480x640 images (610 crops) against the engine
+    without a mesh on the same inputs (within 1e-4 of max(1, max|ref|)),
+    its launches counted; and the ring retrieval of one batch's crops timed
+    against the replicated one."""
+    from leclip_tpu_torch.engine.config import setup_config
+    from leclip_tpu_torch.inference.pipeline import build_caption_bank, make_engine
+    from leclip_tpu_torch.models.dense_clip import retrieval_augment
+    from leclip_tpu_torch.ops import launches
+    from leclip_tpu_torch.parallel.retrieval import retrieval_augment_sharded
+
+    clip_cfg, params, toks, freq, images = main_inputs()
+    bank = build_caption_bank(params, clip_cfg, toks, batch_size=256, precision="int8",
+                              device=DEVICE)
+    specs = build_members(params, clip_cfg, torch.bfloat16)
+    cfg = setup_config(opts=["TEST.PREC", "auto", "TEST.multi_scale", "(2, 3, 4)",
+                             "TEST.use_freq", "True"])
+    engines = {tag: make_engine(cfg, params, clip_cfg, specs, caption_bank=bank,
+                                freq_stats=freq, device=DEVICE, mesh=m, shard_bank=sb)
+               for tag, m, sb in (("mesh", mesh, True), ("plain", None, False))}
+    del params
+    got = {}
+    for tag, engine in engines.items():
+        if engine.precision != "int8" or engine._q8 is None:
+            raise AssertionError(f"[mesh:engine] {tag}: precision {engine.precision}")
+        list(engine.run_batches_fused_staged(iter([images])))  # first-call setup
+        launches.reset_launch_counts()
+        torch.cuda.synchronize(DEVICE)
+        t0 = time.perf_counter()
+        got[tag] = list(engine.run_batches_fused_staged(iter([images] * MESH_SCORE_BATCHES)))
+        torch.cuda.synchronize(DEVICE)
+        got[tag + "_s"] = time.perf_counter() - t0
+        if tag == "mesh":
+            counts = launches.launch_counts()
+    expect_launches("[mesh:engine] scoring", counts, "int8", 12 * MESH_SCORE_BATCHES)
+    eng = engines["mesh"]
+    if eng.caption_bank.shape[0] != -(-BANK_ROWS // mesh.world):
+        raise AssertionError(f"[mesh:engine] bank shard of {eng.caption_bank.shape[0]} rows")
+    errs = [within(a, b) for a, b in zip(got["mesh"], got["plain"])]
+    same_codes = trees_equal(eng._q8, engines["plain"]._q8)
+    # the retrieval of one batch's crops: ring over the sharded bank against
+    # the replicated search of the whole bank
+    crops = N_IMAGES * (1 + eng.n_blocks)
+    gf = torch.nn.functional.normalize(torch.randn(crops // mesh.world, clip_cfg.embed_dim,
+                                                   generator=torch.Generator(
+                                                       device=DEVICE).manual_seed(102),
+                                                   device=DEVICE), dim=-1).to(torch.bfloat16)
+    full = engines["plain"].caption_bank
+    ring_ms = cuda_ms(lambda: retrieval_augment_sharded(
+        gf, eng.caption_bank, eng.topk, mesh, n_valid=eng._bank_n_valid,
+        bank_rows=eng._bank_rows), 10)
+    rep_ms = cuda_ms(lambda: retrieval_augment(gf, full, eng.topk), 10)
+    ring = retrieval_augment_sharded(gf, eng.caption_bank, eng.topk, mesh,
+                                     n_valid=eng._bank_n_valid, bank_rows=eng._bank_rows)
+    rep = retrieval_augment(gf, full, eng.topk)
+    r_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(ring, rep))
+    rate = lambda secs: MESH_SCORE_BATCHES * crops / secs  # noqa: E731
+    log(f"[mesh:engine] ViT-B/16 TEST.PREC auto -> int8, shard_bank over world {mesh.world}: "
+        f"bank {BANK_ROWS} rows, {eng.caption_bank.shape[0]} a rank; {MESH_SCORE_BATCHES} "
+        f"batches of {crops} crops: mesh {rate(got['mesh_s']):.1f} crop-forwards/s, without "
+        f"a mesh {rate(got['plain_s']):.1f}, on {card}; fused scores against the engine "
+        f"without a mesh max|d| {[round(e, 9) for e, _ in errs]} (each within 1e-4 of "
+        f"max(1, max|ref|)); int8 codes and scales equal: {same_codes}; launches {counts}; "
+        f"retrieval of {crops // mesh.world} crops a rank: ring {ring_ms:.4f} ms, replicated "
+        f"{rep_ms:.4f} ms, max|d| {r_err:.3g}")
+    if not (all(ok for _, ok in errs) and same_codes and r_err <= 1e-4):
+        raise AssertionError("[mesh:engine] the mesh engine disagrees with the plain engine")
+    return counts, dict(ring_ms=ring_ms, replicated_ms=rep_ms, errs=[e for e, _ in errs],
+                        crops_per_s_mesh=rate(got["mesh_s"]),
+                        crops_per_s_plain=rate(got["plain_s"]))
+
+
+def phase10_rank(out_dir):
+    """One rank of phase 10, started by torchrun: joins the NCCL group from
+    torchrun's variables (it raises if it cannot), runs the three parts in
+    ``out_dir``, which every rank shares, and on rank 0 writes their launches
+    and results there."""
+    global DEVICE
+    from leclip_tpu_torch.parallel import multihost
+    from leclip_tpu_torch.parallel.mesh import data_mesh
+
+    t0 = time.perf_counter()
+    if not multihost.initialize():
+        raise AssertionError("phase 10: no torchrun variables, the process group was not joined")
+    mesh = data_mesh()
+    DEVICE = mesh.device
+    if torch.distributed.get_backend() != "nccl" or mesh.device.type != "cuda":
+        raise AssertionError(f"phase 10: backend {torch.distributed.get_backend()}, {mesh}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[mesh] rank {mesh.rank} of {mesh.world} on {mesh.device} over NCCL "
+        f"(torch {torch.__version__}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))})")
+    multihost.barrier()
+    parts, secs = {}, {}
+    for key, fn, args in (("train", mesh_trainer_part, (mesh, card, out_dir)),
+                          ("finetune", mesh_finetune_part, (mesh, card)),
+                          ("engine", mesh_engine_part, (mesh, card))):
+        t1 = time.perf_counter()
+        parts[key] = fn(*args)
+        secs[key] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    multihost.barrier()
+    if mesh.rank == 0:
+        counts = {k: sum(c[k] for c, _ in parts.values()) for k in parts["train"][0]}
+        with open(os.path.join(out_dir, "phase10.json"), "w") as f:
+            json.dump({"world": mesh.world, "counts": counts,
+                       "parts": {k: r for k, (_, r) in parts.items()},
+                       "part_counts": {k: c for k, (c, _) in parts.items()},
+                       "secs": secs, "rank_secs": time.perf_counter() - t0}, f)
+    multihost.shutdown()
+    return 0
+
+
+def launch_phase10(world, out_dir):
+    """torchrun --standalone --nproc_per_node world chip_smoke.py --phase10:
+    the ranks' output echoed, a non-zero exit or an overrun raised."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={world}", os.path.abspath(__file__), "--phase10", out_dir]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=MESH_TIMEOUT_S,
+                              env=env)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"phase 10 world {world}: torchrun overran {MESH_TIMEOUT_S} s:\n"
+                             f"{(e.stdout or '')[-4000:]}\n{(e.stderr or '')[-4000:]}") from e
+    for line in proc.stdout.splitlines():
+        log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 10 world {world}: torchrun exited {proc.returncode}:\n"
+                             f"{proc.stderr[-6000:]}")
+    with open(os.path.join(out_dir, "phase10.json")) as f:
+        res = json.load(f)
+    if res["world"] != world:
+        raise AssertionError(f"phase 10: ran world {res['world']}, launched {world}")
+    res["launch_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_mesh(card):
+    """Phase 10: the data-parallel trainer, fine-tuner and mesh engine as
+    NCCL ranks under torchrun: world 1 on one card, worlds 2 and 4 where
+    there are that many cards. Returns (launches of world 1's main paths,
+    results)."""
+    t0 = time.perf_counter()
+    res = {}
+    for world in (1, 2, 4):
+        if world > torch.cuda.device_count():
+            log(f"[phase10] world {world}: not run ({torch.cuda.device_count()} card"
+                f"{'s' if torch.cuda.device_count() > 1 else ''})")
+            continue
+        tmp = tempfile.mkdtemp(prefix=f"leclip_phase10_world{world}_")
+        try:
+            res[world] = launch_phase10(world, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    r1 = res[1]
+    log(f"[phase10] world 1 launches of rows 1-6: {r1['counts']}; parts {r1['secs']}; "
+        f"torchrun {r1['launch_s']:.1f} s, the rank {r1['rank_secs']:.1f} s of it")
+    log(f"[phase10] {time.perf_counter() - t0:.1f} s in all on {card}")
+    return r1["counts"], res
+
+
 KERNEL_SOURCES = {  # name: (source, file:line of the TPU kernel, its precision path)
     "attn_block_bf16": ("leclip_tpu_torch/csrc/attn_block_bf16.cu",
                         "leclip_tpu/ops/block_kernels.py:122", "bf16"),
@@ -3379,6 +3745,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--phase10"]:  # one rank of phase 10, started by torchrun
+        return phase10_rank(sys.argv[2])
     from leclip_tpu_torch.ops import _build
     from leclip_tpu_torch.ops import block_kernels as bk
     from leclip_tpu_torch.ops import flash_attention as fa
@@ -3402,6 +3770,9 @@ def main() -> int:
         log(f"[device] ptxas {k}: {' | '.join(regs)}")
 
     check_sass(_build)
+    if sys.argv[1:2] == ["--only-phase10"]:  # the build and phase 10 alone, no result line
+        phase_mesh(card)
+        return 0
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     kern = phase_kernels_bf16(bk, gen)
@@ -3434,6 +3805,10 @@ def main() -> int:
         total[k] = total.get(k, 0) + n
     torch.cuda.empty_cache()
     ft_counts, ft = phase_finetune(card, fa)
+    torch.cuda.empty_cache()
+    mesh_counts, _ = phase_mesh(card)
+    for k in KERNEL_SOURCES:
+        total[k] += mesh_counts[k]
 
     line = {"kernels": []}
     for k, (src, replaces, prec) in KERNEL_SOURCES.items():
@@ -3457,6 +3832,7 @@ def main() -> int:
             **({"launches_rn50_bank": rn_bank_counts[k]} if prec == "bf16" else {}),
             "launches_train": train_counts[k],
             "launches_phase7": total7[k],
+            "launches_phase10": mesh_counts[k],
             **{f"launches_{path}": flow[path][k] for path in ("validate", "adapter", "zeroshot",
                                                                "caption_eval")},
             **({"device_ms": vit["device_ms"], "text_device_ms": text["device_ms"]}
@@ -3468,7 +3844,7 @@ def main() -> int:
         main_v = variants["vit fp32"]  # the shape and dtype the main path gives it
         line["kernels"].append({
             "name": k, "route": "cuda", "source": src, "headers": headers, "replaces": replaces,
-            "launches": total_attn[k] + total7[k] + flow_total[k] + ft_counts[k],
+            "launches": total_attn[k] + total7[k] + flow_total[k] + ft_counts[k] + mesh_counts[k],
             "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
             **{key: main_v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")},
@@ -3480,6 +3856,7 @@ def main() -> int:
             **{f"launches_{path}": flow[path][k] for path in ("validate", "adapter", "zeroshot",
                                                                "caption_eval")},
             "launches_finetune": ft_counts[k],
+            "launches_phase10": mesh_counts[k],
             **({"finetune": ft["attention"],
                 "finetune_path": "CLIPFineTuner.train_step / fit_pairs, ViT-B/16 fp32 image "
                                  "tower: 12 launches per image forward, the backward "

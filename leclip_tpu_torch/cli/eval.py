@@ -14,7 +14,11 @@ precision follows ``TEST.PREC`` (engine/config.py resolve_test_precision):
 ``auto`` is int8 for a gate-validated ViT on the card and bf16 otherwise.
 ``--save-dir DIR`` takes the per-member dump path: ``DIR/data.pkl`` and
 ``DIR/sim_matrix.pkl`` are written (``cli/gen_final_ans.py`` fuses them
-again later) and fused into the same ``impreds.json``."""
+again later) and fused into the same ``impreds.json``.
+
+On N cards, ``torchrun --nproc_per_node N -m leclip_tpu_torch.cli.eval
+...``: each rank scores its share of every batch, every rank gets every
+score, and rank 0 writes the files."""
 
 from __future__ import annotations
 
@@ -122,10 +126,11 @@ def run_eval(cfg, clip_params, clip_cfg, model_dir, classnames, images, caption_
 
 def main(argv=None):
     args = parse_args(argv)
-    from ..device import resolve_device
     from ..engine.config import setup_config
+    from ..parallel.multihost import initialize, local_device
 
-    device = resolve_device(args.device)
+    initialize(device=args.device)  # under torchrun; no-op in a plain launch
+    device = local_device(args.device)
     cfg = setup_config(dataset_yaml=args.dataset_config, trainer_yaml=args.trainer_config,
                        opts=args.opts, eval_only=True)
     clip_cfg, clip_params = load_clip(cfg, args, device)

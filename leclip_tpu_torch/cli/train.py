@@ -12,7 +12,16 @@ Runs on the card; ``--device cpu`` runs it on the CPU explicitly. It writes
 ``{output-dir}/{TEST.multi_model[0]}/model.ckpt-{epoch}`` in the JAX
 package's format, which the port's ``cli/eval.py`` and the JAX package both
 read. Without ``--weights`` the backbone preset is initialised at random
-from a fixed seed (a dry run)."""
+from a fixed seed (a dry run).
+
+On N cards of one host, one process per card:
+
+    torchrun --nproc_per_node N -m leclip_tpu_torch.cli.train ...
+
+Each rank joins the NCCL group from torchrun's variables, trains on its
+shard with ``BATCH_SIZE_TRAIN`` captions a step (the global batch is N
+times it), and rank 0 alone writes the log, the metrics and the
+checkpoints."""
 
 from __future__ import annotations
 
@@ -41,13 +50,16 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    from ..device import resolve_device
     from ..engine.config import setup_config
     from ..engine.trainer import build_trainer
+    from ..parallel.multihost import initialize, is_primary, local_device
     from ..utils.logging import set_random_seed, setup_logger
     from .eval import eval_split, load_clip, run_eval
 
-    device = resolve_device(args.device)
+    # join the process group under torchrun (no-op in a plain launch): the
+    # reference's dist.init_process_group (train_caption.py:176-179)
+    initialize(device=args.device)
+    device = local_device(args.device)
     cfg = setup_config(
         dataset_yaml=args.dataset_config,
         trainer_yaml=args.trainer_config,
@@ -60,9 +72,11 @@ def main(argv=None):
         eval_only=args.eval_only,
     )
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    setup_logger(cfg.OUTPUT_DIR)
+    primary = is_primary()
+    if primary:
+        setup_logger(cfg.OUTPUT_DIR)
+        print("config:", cfg.to_dict())
     set_random_seed(cfg.SEED)
-    print("config:", cfg.to_dict())
 
     clip_cfg, clip_params = load_clip(cfg, args, device)
     if args.eval_only:
@@ -72,7 +86,7 @@ def main(argv=None):
 
     trainer = build_trainer(cfg, clip_params, clip_cfg, device=device)
     trainer.train(resume=bool(args.resume))
-    if not cfg.TEST.NO_TEST:
+    if not cfg.TEST.NO_TEST and primary:
         # reference after_train final test (dassl trainer.py:415-436); with
         # TRAIN.probe_holdout set this reports mAP on held-out captions
         trainer.validate()

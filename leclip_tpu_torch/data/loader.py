@@ -23,21 +23,34 @@ class CaptionBatcher:
     permutations (set_epoch analogue): the JAX package's
     ``default_rng(seed + epoch)`` permutations, so both packages train on
     the same batches. Batches are padded up to the full batch size by
-    wrapping around, so every step has the same shape. One device: the JAX
-    package's data shards wait for multi-GPU training."""
+    wrapping around, so every step has the same shape.
 
-    def __init__(self, tokens: np.ndarray, labels: np.ndarray, batch_size: int, seed: int = 0):
+    Under a data mesh each rank loads shard ``shard_index`` of
+    ``num_shards``: the same contiguous slice of each epoch's permutation as
+    the JAX package's (the reference's CustomDistributedSamplerWrapper,
+    dassl/data/samplers.py:181-195), ``batch_size`` rows a rank a step (the
+    DDP rule: the global batch is ``num_shards`` times it)."""
+
+    def __init__(self, tokens: np.ndarray, labels: np.ndarray, batch_size: int, seed: int = 0,
+                 shard_index: int = 0, num_shards: int = 1):
         assert len(tokens) == len(labels)
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} outside [0, {num_shards})")
         self.tokens = tokens
         self.labels = labels
         self.batch_size = batch_size
         self.seed = seed
+        self.shard_index = shard_index
+        self.num_shards = num_shards
 
     def steps_per_epoch(self) -> int:
-        return max(1, len(self.tokens) // self.batch_size)
+        return max(1, len(self.tokens) // self.num_shards // self.batch_size)
 
     def epoch(self, epoch: int) -> Iterator[dict]:
-        order = np.random.default_rng(self.seed + epoch).permutation(len(self.tokens))
+        n = len(self.tokens)
+        order = np.random.default_rng(self.seed + epoch).permutation(n)
+        per_shard = n // self.num_shards
+        order = order[self.shard_index * per_shard: (self.shard_index + 1) * per_shard]
         bs = self.batch_size
         for s in range(self.steps_per_epoch()):
             idx = order[s * bs : (s + 1) * bs]

@@ -12,13 +12,20 @@ the step, metrics go to JSONL, and each epoch writes
 ``{dir}/{name}/model.ckpt-{e}`` in the JAX package's layout, which both
 packages resume from.
 
-One device, given explicitly (``device="cpu"`` for the CPU, the card
-otherwise). On the card, ViT attention takes the JAX package's "auto" route,
-``resident_attention`` in every layer of the image tower, under autograd
-(its backward recomputes the plain form). The JAX package's data mesh and
-background prefetch wait for multi-GPU training: ``prefetch > 0`` raises.
-Several backbones (ViT-B/16 and RN101) run one fine-tuner each over the
-same pair stream.
+One process per GPU over a ``parallel.mesh.DataMesh`` (the initialized
+process group's world, else one rank on ``device``: ``"cpu"`` for the CPU,
+the card otherwise). Each rank steps on its own rows of the global batch;
+the loss is over the global batch, as in the JAX package: the image and
+text features are gathered with their gradient
+(``parallel.mesh.gather_with_grad``), the gradient is averaged over the
+ranks before the global-norm clip, and each rank takes its own rows of the
+global batch's augmentation draws, so world 2 augments as world 1 does.
+Persistence, metric files and console lines are rank 0's. ``prefetch > 0``
+uploads the next batches from a producer thread. On the card, ViT
+attention takes the JAX package's "auto" route, ``resident_attention`` in
+every layer of the image tower, under autograd (its backward recomputes the
+plain form). Several backbones (ViT-B/16 and RN101) run one fine-tuner each
+over the same pair stream.
 
 The optimizer is written on tensors as engine/train_state.py writes the
 prompt trainer's, so its state is the optax chain's in flax's state-dict
@@ -44,7 +51,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve_device
+from ..parallel.mesh import DataMesh, all_reduce_mean, data_mesh, gather_with_grad, \
+    prefetch_sharded, replicate
+from ..parallel.multihost import is_primary
 from ..models.clip import CLIPConfig, clip_encode_image, clip_encode_text
 from ..models.convert import from_jax_params, to_jax_params
 from . import flax_msgpack
@@ -61,13 +70,18 @@ class FinetuneState(NamedTuple):
 
 
 def clip_contrastive_loss(params: dict, clip_cfg: CLIPConfig, images: torch.Tensor,
-                          tokens: torch.Tensor, impl: str = "auto", remat: bool = False):
+                          tokens: torch.Tensor, impl: str = "auto", remat: bool = False,
+                          mesh: Optional[DataMesh] = None):
     """Symmetric InfoNCE over in-batch pairs (the CLIP pre-training loss):
-    (loss, logits [B, B])."""
+    (loss, logits [B, B]). Under a ``mesh`` each rank encodes its own rows
+    and the pairs are the global batch's, every rank's features gathered
+    with their gradient."""
     img = clip_encode_image(params, clip_cfg, images, impl=impl)
     txt = clip_encode_text(params, clip_cfg, tokens, impl=impl, remat=remat)
     img = img / img.norm(dim=-1, keepdim=True)
     txt = txt / txt.norm(dim=-1, keepdim=True)
+    if mesh is not None:
+        img, txt = gather_with_grad(img, mesh), gather_with_grad(txt, mesh)
     scale = params["logit_scale"].clamp(max=MAX_LOGIT_SCALE).exp()
     logits = scale * img @ txt.t()
     labels = torch.arange(logits.shape[0], device=logits.device)
@@ -165,17 +179,32 @@ def finetune_optimizer(lr: float, weight_decay: float, warmup_steps: int, total_
 # --------------------------------- tuner --------------------------------------
 
 
+def _take_rows(tree, rows: slice):
+    """``rows`` of every tensor of a nested (named) tuple of draws."""
+    if isinstance(tree, torch.Tensor):
+        return tree[rows]
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_take_rows(v, rows) for v in tree))
+    return type(tree)(_take_rows(v, rows) for v in tree)
+
+
 class CLIPFineTuner:
-    """Full-model fine-tuner on one device: ``train_step`` on prepared
+    """Full-model fine-tuner over a data mesh: ``train_step`` on prepared
     images, ``fit`` over such batches, ``fit_pairs`` over a PairBatcher with
-    the augmentation on the device, and ``save`` / ``resume``."""
+    the augmentation on the device, and ``save`` / ``resume``. ``mesh``
+    defaults to ``parallel.mesh.data_mesh(device)``; each rank passes its
+    own rows of the global batch."""
 
     def __init__(self, clip_params: dict, clip_cfg: CLIPConfig, lr: float = 1e-5,
                  weight_decay: float = 0.2, warmup_steps: int = 100, total_steps: int = 10_000,
-                 remat: bool = True, attention_impl: str = "auto", device=None):
-        self.device = resolve_device(device)
+                 remat: bool = True, attention_impl: str = "auto", device=None,
+                 mesh: Optional[DataMesh] = None):
+        self.mesh = mesh if mesh is not None else data_mesh(device)
+        self.device = self.mesh.device
         self.clip_cfg = clip_cfg
-        params = _tree(lambda t: t.detach().to(self.device).clone(), clip_params)
+        # a copy on the device, rank 0's on every rank
+        params = replicate(_tree(lambda t: t.detach().to(self.device).clone(), clip_params),
+                           self.mesh)
         self.mask = decay_mask(params)
         self.optimizer = finetune_optimizer(lr, weight_decay, warmup_steps, total_steps,
                                             self.mask)
@@ -190,10 +219,13 @@ class CLIPFineTuner:
             live = _tree(lambda t: t.detach().requires_grad_(), params)
             flat = []
             _tree(flat.append, live)
-            loss, logits = clip_contrastive_loss(live, self.clip_cfg, images, tokens,
-                                                 impl=self._impl, remat=self._remat)
+            loss, logits = clip_contrastive_loss(
+                live, self.clip_cfg, images, tokens, impl=self._impl, remat=self._remat,
+                mesh=self.mesh if self.mesh.distributed else None)
             grads = torch.autograd.grad(loss, flat)
-        it = iter(grads)
+        # the global loss's gradient: the mean of the ranks' (each rank's
+        # rows carry the world's summed cotangent, gather_with_grad)
+        it = iter(all_reduce_mean(grads, self.mesh))
         labels = torch.arange(logits.shape[0], device=logits.device)
         acc = (logits.detach().argmax(-1) == labels).float().mean()
         return loss.detach(), acc, _tree(lambda _: next(it), params)
@@ -207,8 +239,9 @@ class CLIPFineTuner:
 
     def train_step(self, state: FinetuneState, images, tokens):
         """One step on normalised images [B, H, W, 3] and tokens [B, 77]
-        (tensors or arrays, moved to the tuner's device) → (new state,
-        {"loss", "acc", "grad_norm"} as device scalars; grad_norm is the
+        (tensors or arrays, moved to the tuner's device; under a mesh this
+        rank's rows of the global batch) → (new state, {"loss", "acc",
+        "grad_norm"} as device scalars of the global batch; grad_norm is the
         gradient's global norm before clipping)."""
         images = torch.as_tensor(images, device=self.device)
         tokens = torch.as_tensor(tokens, device=self.device)
@@ -216,8 +249,9 @@ class CLIPFineTuner:
 
     def raw_train_step(self, state: FinetuneState, seed: int, images_u8, content, tokens):
         """One step on a bucket-padded uint8 batch: a generator on the device
-        seeded with ``seed`` draws the train transform's parameters, which
-        ``preprocess_train_batch`` applies on the device."""
+        seeded with ``seed`` draws the train transform's parameters for the
+        global batch, of which this rank applies its own rows' with
+        ``preprocess_train_batch`` on the device."""
         from ..ops.preprocess import preprocess_train_batch, sample_train
 
         images_u8 = torch.as_tensor(images_u8, device=self.device)
@@ -225,7 +259,10 @@ class CLIPFineTuner:
         tokens = torch.as_tensor(tokens, device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         size = self.clip_cfg.image_resolution
-        draws = sample_train(gen, (images_u8.shape[0],), size, device=self.device)
+        b, mesh = images_u8.shape[0], self.mesh
+        draws = sample_train(gen, (b * mesh.world,), size, device=self.device)
+        if mesh.world > 1:
+            draws = _take_rows(draws, slice(mesh.rank * b, (mesh.rank + 1) * b))
         images = preprocess_train_batch(images_u8, content, draws, size=size)
         return self._apply(state, images, tokens)
 
@@ -234,7 +271,8 @@ class CLIPFineTuner:
     def save(self, directory: str, name: str = "clip_finetune", epoch: int = 0) -> str:
         """``{directory}/{name}/model.ckpt-{epoch}``: params, optimizer state,
         step and epoch in the JAX package's layout, beside the
-        ``checkpoint`` pointer."""
+        ``checkpoint`` pointer. Every rank holds the same state: callers
+        under a mesh save on rank 0 (``fit_pairs`` does)."""
         model_dir = os.path.join(directory, name)
         os.makedirs(model_dir, exist_ok=True)
         path = os.path.join(model_dir, f"model.ckpt-{epoch}")
@@ -283,27 +321,23 @@ class CLIPFineTuner:
         pending.clear()
         return float(last["loss"]), float(last["acc"])
 
-    @staticmethod
-    def _no_prefetch(prefetch: int):
-        if prefetch > 0:
-            raise ValueError("prefetch > 0 needs the data mesh of multi-GPU training, which "
-                             "the port does not have yet; pass prefetch=0")
-
     def fit(self, batches, log_every: int = 10, metrics_writer=None, prefetch: int = 0,
             sync_every: int = 0) -> FinetuneState:
         """batches: iterable of {'image': [B, H, W, 3] float, 'tokens':
-        [B, 77]}."""
-        self._no_prefetch(prefetch)
+        [B, 77]}, this rank's rows under a mesh. ``prefetch > 0`` uploads
+        the next batches from a producer thread (parallel/mesh.py
+        ``prefetch_sharded``); ``sync_every`` (0 = auto) batches the reads
+        of the metrics."""
         sync = self._sync_cadence(sync_every, log_every)
         pending = []
         step0 = int(self.state.step)
-        for i, b in enumerate(batches):
+        for i, b in enumerate(prefetch_sharded(batches, self.mesh, depth=prefetch)):
             self.state, metrics = self.train_step(self.state, b["image"], b["tokens"])
             pending.append((step0 + i + 1, metrics))
             if (i + 1) % sync != 0 and (i + 1) % log_every != 0:
                 continue
             loss, acc = self._drain_metrics(pending, metrics_writer, f"step {i}")
-            if (i + 1) % log_every == 0:
+            if (i + 1) % log_every == 0 and is_primary():
                 print(f"finetune step {i + 1}: loss {loss:.4f} acc {acc:.3f}")
         if pending:
             self._drain_metrics(pending, metrics_writer, "final step")
@@ -317,24 +351,37 @@ class CLIPFineTuner:
         batches → the train transform on the device inside each step →
         JSONL metrics → a checkpoint per epoch, resuming from the newest
         one. Step ``i`` of epoch ``e`` draws its augmentation from the seed
-        ``(seed·1000003 + e·100000 + i) mod (2³¹ − 1)``."""
-        self._no_prefetch(prefetch)
+        ``(seed·1000003 + e·100000 + i) mod (2³¹ − 1)``.
+
+        Under a mesh the batcher is this rank's shard
+        (``PairBatcher(shard_index=rank, num_shards=world)``; duplicated data
+        would give each caption world − 1 identical negatives), every rank
+        resumes from the shared directory, and rank 0 alone writes the
+        metrics, the checkpoints and the console lines."""
+        mesh = self.mesh
+        if (getattr(pair_batcher, "shard_index", 0), getattr(pair_batcher, "num_shards", 1)) != (
+                mesh.rank, mesh.world):
+            raise ValueError(f"fit_pairs on rank {mesh.rank} of {mesh.world} needs the pair "
+                             f"batcher's shard {mesh.rank} of {mesh.world}")
+        primary = is_primary()
         writer = None
         start_epoch = 0
         if output_dir:
             from .metrics import MetricsWriter
 
-            writer = MetricsWriter(output_dir)
+            if primary:
+                writer = MetricsWriter(output_dir)
             if resume:
                 start_epoch = self.resume(output_dir, name)
-                if start_epoch:
+                if start_epoch and primary:
                     print(f"resumed {name} at epoch {start_epoch} (step {self.state.step})")
         sync = self._sync_cadence(sync_every, log_every)
         for epoch in range(start_epoch, epochs):
             t0 = time.time()
             pending = []
             step0 = int(self.state.step)
-            for i, b in enumerate(pair_batcher.epoch(epoch)):
+            for i, b in enumerate(prefetch_sharded(pair_batcher.epoch(epoch), mesh,
+                                                   depth=prefetch)):
                 step_seed = (seed * 1_000_003 + epoch * 100_000 + i) % (2 ** 31 - 1)
                 self.state, metrics = self.raw_train_step(
                     self.state, step_seed, b["image_u8"], b["content"], b["tokens"])
@@ -342,14 +389,15 @@ class CLIPFineTuner:
                 if (i + 1) % sync != 0 and (i + 1) % log_every != 0:
                     continue
                 loss, _ = self._drain_metrics(pending, writer, f"epoch {epoch} step {i}")
-                if (i + 1) % log_every == 0:
+                if (i + 1) % log_every == 0 and primary:
                     print(f"epoch {epoch} step {i + 1}: loss {loss:.4f}")
             if pending:
                 self._drain_metrics(pending, writer, f"epoch {epoch} final step")
-            if output_dir:
+            if output_dir and primary:
                 self.save(output_dir, name, epoch)
                 writer.flush()
-            print(f"epoch {epoch} done in {time.time() - t0:.1f}s")
+            if primary:
+                print(f"epoch {epoch} done in {time.time() - t0:.1f}s")
         if writer is not None:
             writer.close()
         return self.state

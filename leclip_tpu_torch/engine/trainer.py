@@ -11,7 +11,18 @@ Caption_distill_double.py:565-948 + Dassl dassl/engine/trainer.py):
   per-epoch prompt-only checkpoints in ``{OUTPUT_DIR}/{name}/`` in the JAX
   package's flax-msgpack format.
 
-One device. The frozen caption branch is encoded once per step under
+Data-parallel over a ``parallel.mesh.DataMesh``, the reference's DDP rule
+(one process per GPU, ``torchrun``): each rank loads its contiguous shard of
+every epoch's permutation, ``BATCH_SIZE_TRAIN`` captions a rank a step, the
+gradient is all-reduced to the global batch's mean (every loss of the step
+is a mean over rows), the logged loss and metrics are the global ones, so
+the NaN guard stops every rank together, and checkpoints, metric files,
+profiler traces and console lines are written by rank 0 alone. Without a
+process group the mesh is one rank and no collective runs.
+``TRAIN.prefetch_batches`` > 0 uploads the next batches from a producer
+thread (``parallel.mesh.prefetch_sharded``).
+
+The frozen caption branch is encoded once per step under
 ``no_grad`` and shared by the student and teacher heads: under
 ``TRAINER.PREC bf16`` it runs the bf16 block kernels on the card
 (``TRAIN.fused_captions``), under ``TRAIN.int8_captions`` the W8A8 kernels.
@@ -24,10 +35,7 @@ else the dataset's val images through a one-member TTA engine;
 ``TRAIN.profile_dir`` traces a bounded window of first-epoch steps with
 torch.profiler; ``Caption_distill_double_adapter`` (the
 :class:`CaptionDistillAdapterTrainer`) encodes the prompts through the
-bottleneck adapter of models/adapter.py.
-
-Not ported: the data mesh, multi-process loading and device prefetch
-(``TRAIN.prefetch_batches`` raises)."""
+bottleneck adapter of models/adapter.py."""
 
 from __future__ import annotations
 
@@ -41,11 +49,13 @@ import torch
 
 from ..data.datasets import CaptionDataset, build_dataset
 from ..data.loader import CaptionBatcher
-from ..device import cast_floating, no_tf32, resolve_device, tree_map
+from ..device import cast_floating, no_tf32
 from ..models.clip import CLIPConfig
 from ..models.dense_clip import DenseFlags, encode_captions, train_logits_from_features
 from ..models.prompt import assemble_prompts, build_prompt_learner, ema_update
 from ..ops import losses as L
+from ..parallel.mesh import DataMesh, all_reduce_mean, data_mesh, prefetch_sharded, replicate
+from ..parallel.multihost import barrier, is_primary
 from ..utils.logging import MetricMeter, profiler_trace
 from ..utils.registry import TRAINER_REGISTRY
 from .checkpoint import resume_if_exists, save_checkpoint
@@ -86,6 +96,7 @@ def make_train_step(
     caption_text: Optional[dict] = None,
     adapter: Optional[dict] = None,
     adapter_trainable: bool = False,
+    mesh: Optional[DataMesh] = None,
 ) -> Callable:
     """Build the (state, captions, labels) → (state, metrics) step.
 
@@ -97,7 +108,10 @@ def make_train_step(
     ``clip_params`` and full precision: the gradients flow through it.
     ``adapter``: the adapter trainer's bottleneck, on the prompt path only;
     with ``adapter_trainable`` the state's params carry it as ``_adapter``
-    (``adapter`` then stands only where they do not).
+    (``adapter`` then stands only where they do not). ``mesh``: the step
+    takes this rank's rows of the global batch, and the gradient and the
+    metrics are averaged over the ranks before the optimizer, so every rank
+    takes the global batch's step.
 
     The returned step takes an optional ``mark(name)`` callback, called at
     the end of each part of the step ("caption", "teacher", "prompt
@@ -176,8 +190,14 @@ def make_train_step(
             loss, aux = compute_loss(out, out_local, labels, teacher, captions, params)
             mark("loss")
             grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-            grads = _unflatten({k: torch.zeros_like(v) if g is None else g
-                                for (k, v), g in zip(leaves.items(), grads)})
+            grads = [torch.zeros_like(v) if g is None else g
+                     for v, g in zip(leaves.values(), grads)]
+            if mesh is not None:
+                # the global batch's gradient and metrics: every loss is a
+                # mean over rows, and every rank holds an equal share
+                grads = all_reduce_mean(grads, mesh)
+                aux = dict(zip(aux, all_reduce_mean(list(aux.values()), mesh)))
+            grads = _unflatten(dict(zip(leaves, grads)))
             mark("backward")
             with torch.no_grad():
                 new_params, opt_state = optimizer.update(grads, state.opt_state, state.params)
@@ -222,23 +242,24 @@ class CaptionDistillTrainer:
     """Owner of dataset, prompt state, optimizer, and the train loop.
 
     ``device`` defaults to the card (it raises without one); the CPU is used
-    only when asked for. The prompt context is drawn from a CPU generator
+    only when asked for. ``mesh`` defaults to ``parallel.mesh.data_mesh``:
+    the initialized process group's world on this rank's device, else one
+    rank on ``device``. The prompt context is drawn from a CPU generator
     seeded with ``cfg.SEED``, so a seed gives the same start on every
-    device."""
+    device, and the state is broadcast from rank 0 besides."""
 
     def __init__(self, cfg: Config, clip_params: dict, clip_cfg: CLIPConfig,
-                 dataset: Optional[CaptionDataset] = None, device=None):
+                 dataset: Optional[CaptionDataset] = None, device=None,
+                 mesh: Optional[DataMesh] = None):
         self.cfg = cfg
         self.clip_cfg = clip_cfg
-        self.device = device = resolve_device(device)
+        self.mesh = mesh = mesh if mesh is not None else data_mesh(device)
+        self.device = device = mesh.device
         self.dataset = dataset if dataset is not None else build_dataset(cfg)
         self.flags = flags_from_config(cfg)
         self.model_name = cfg.TEST.multi_model[0]
-        if cfg.TRAIN.prefetch_batches:
-            raise NotImplementedError("TRAIN.prefetch_batches: device prefetch is not ported "
-                                      "(each batch is uploaded inline); leave it at 0")
 
-        clip_params = tree_map(lambda t: t.to(device), clip_params)
+        clip_params = replicate(clip_params, mesh)
         self.trainable, self.constants = build_prompt_learner(
             torch.Generator().manual_seed(cfg.SEED), clip_params, self.dataset.classnames,
             n_ctx=cfg.TRAINER.N_CTX, csc=cfg.TRAINER.CSC, ctx_init=cfg.TRAINER.CTX_INIT,
@@ -263,13 +284,17 @@ class CaptionDistillTrainer:
             self.probe_tokens = tokens[hold]
             self.probe_labels = labels[hold]
             tokens, labels = tokens[keep], labels[keep]
-            print(f"probe holdout: {len(hold)} captions held out of training")
+            if is_primary():
+                print(f"probe holdout: {len(hold)} captions held out of training")
+        # each rank loads its contiguous shard of every epoch permutation,
+        # BATCH_SIZE_TRAIN rows a step (the DDP rule)
         self.batcher = CaptionBatcher(tokens, labels,
-                                      batch_size=cfg.DATALOADER.BATCH_SIZE_TRAIN, seed=cfg.SEED)
+                                      batch_size=cfg.DATALOADER.BATCH_SIZE_TRAIN, seed=cfg.SEED,
+                                      shard_index=mesh.rank, num_shards=mesh.world)
         steps = self.batcher.steps_per_epoch()
         self.optimizer = build_optimizer(cfg.OPTIM, steps)
         self.lr_fn = epoch_lr_schedule(cfg.OPTIM, steps)
-        self.state = create_train_state(self.trainable, self.optimizer)
+        self.state = replicate(create_train_state(self.trainable, self.optimizer), mesh)
 
         co_matrix = resample_params = lmpt_counts = None
         if cfg.TRAIN.LOSSFUNC == "ranking_with_cooccurrence":
@@ -298,7 +323,7 @@ class CaptionDistillTrainer:
                     "real-geometry gate measured 768-wide causal text outside the ±0.2 "
                     "probe-mAP bound (quant_gate_realwidth.json) — prefer the fused bf16 "
                     "caption branch for >512-wide towers")
-            caption_q8 = quantize_stack_on_device(caption_text["blocks"])
+            caption_q8 = quantize_stack_on_device(caption_text["blocks"], mesh=mesh)
             if device.type == "cuda":
                 caption_text, caption_q8 = int8_kernel_stack(caption_text, caption_q8)
         # fused bf16 caption branch: where the kernels run (the card), with
@@ -316,6 +341,7 @@ class CaptionDistillTrainer:
             lmpt=cfg.TRAIN.LMPT, lmpt_lambda=cfg.TRAIN.LMPT_LAMBDA,
             lmpt_class_counts=lmpt_counts, m_ctx=cfg.TRAINER.M_CTX,
             caption_q8=caption_q8, caption_fused=caption_fused, caption_text=caption_text,
+            mesh=mesh if mesh.distributed else None,
         )
         self.train_step = make_train_step(self.clip_params, clip_cfg, self.constants,
                                           self.optimizer, self.flags, **self._step_kwargs)
@@ -354,7 +380,11 @@ class CaptionDistillTrainer:
         if resume and cfg.RESUME:
             self.state, start_epoch = resume_if_exists(self.state, cfg.RESUME, self.model_name)
         meter = MetricMeter()
-        writer = MetricsWriter(cfg.OUTPUT_DIR) if cfg.OUTPUT_DIR else None
+        # rank-0 gate for everything that persists or prints (reference:
+        # Caption_distill_double.py:576-587, dassl/engine/trainer.py:656):
+        # every rank holds the same state, exactly one writes it
+        primary = is_primary()
+        writer = MetricsWriter(cfg.OUTPUT_DIR) if (cfg.OUTPUT_DIR and primary) else None
         t_start = time.time()
         # Host-sync cadence (TRAIN.sync_every; 0 = auto): fetching the
         # metrics is the step's only sync, so on the card it happens at
@@ -369,7 +399,7 @@ class CaptionDistillTrainer:
         # kernel and library), written as a TensorBoard-loadable trace
         self._prof_cm = None
         try:
-            self._train_epochs(start_epoch, meter, writer, sync_every, print_freq)
+            self._train_epochs(start_epoch, meter, writer, sync_every, print_freq, primary)
         finally:
             # an exception inside the window (the NaN guard) still closes
             # the profiler, so a later window in the process can open
@@ -378,19 +408,24 @@ class CaptionDistillTrainer:
                 self._prof_cm = None
             if writer is not None:
                 writer.close()
-        print(f"training done in {time.time() - t_start:.1f}s")
+        # the last checkpoint is on disk before any rank goes on to read it
+        barrier()
+        if primary:
+            print(f"training done in {time.time() - t_start:.1f}s")
         return self.state
 
-    def _train_epochs(self, start_epoch, meter, writer, sync_every, print_freq):
+    def _train_epochs(self, start_epoch, meter, writer, sync_every, print_freq, primary):
         cfg = self.cfg
         max_epoch = cfg.OPTIM.MAX_EPOCH
         steps_per_epoch = self.batcher.steps_per_epoch()
-        profiling = bool(cfg.TRAIN.profile_dir)
+        profiling = bool(cfg.TRAIN.profile_dir) and primary
         prof_start = 1 if steps_per_epoch > 1 else 0
         prof_stop = min(5, steps_per_epoch - 1) if steps_per_epoch > 1 else 0
         for epoch in range(start_epoch, max_epoch):
             t_epoch = time.time()
-            for i, batch in enumerate(self.batcher.epoch(epoch)):
+            batches = prefetch_sharded(self.batcher.epoch(epoch), self.mesh,
+                                       depth=cfg.TRAIN.prefetch_batches)
+            for i, batch in enumerate(batches):
                 self.state, metrics = self.train_step(self.state, batch["img"], batch["label"])
                 if profiling and epoch == start_epoch:
                     if i == prof_start:
@@ -407,7 +442,7 @@ class CaptionDistillTrainer:
                 host = {k: float(v) for k, v in metrics.items()}
                 if not np.isfinite(host["loss"]):
                     raise FloatingPointError(f"non-finite loss at epoch {epoch}: {host}")
-                if n % print_freq == 0:
+                if n % print_freq == 0 and primary:
                     meter.update(host)
                     lr = float(self.lr_fn(self.state.step - 1))
                     print(f"epoch [{epoch + 1}/{max_epoch}] batch [{n}/{steps_per_epoch}] "
@@ -421,11 +456,12 @@ class CaptionDistillTrainer:
             # epochs past the last freq multiple are NOT saved, as there
             meet_freq = cfg.TRAIN.CHECKPOINT_FREQ > 0 and (
                 (epoch + 1) % cfg.TRAIN.CHECKPOINT_FREQ == 0)
-            if meet_freq or epoch + 1 == max_epoch:
+            if primary and (meet_freq or epoch + 1 == max_epoch):
                 path = save_checkpoint(self.state, cfg.OUTPUT_DIR, self.model_name, epoch)
                 print(f"checkpoint → {path} ({time.time() - t_epoch:.1f}s/epoch)")
             if 0 <= cfg.TRAIN.early_stop_epoch <= epoch + 1:
-                print(f"early stop at epoch {epoch + 1}")
+                if primary:
+                    print(f"early stop at epoch {epoch + 1}")
                 break
 
     def validate_probe(self, batch_size: int = 256) -> dict:
@@ -517,24 +553,25 @@ class CaptionDistillAdapterTrainer(CaptionDistillTrainer):
 
     def __init__(self, cfg: Config, clip_params: dict, clip_cfg: CLIPConfig,
                  dataset: Optional[CaptionDataset] = None, device=None,
-                 adapter: Optional[dict] = None):
-        super().__init__(cfg, clip_params, clip_cfg, dataset=dataset, device=device)
+                 adapter: Optional[dict] = None, mesh: Optional[DataMesh] = None):
+        super().__init__(cfg, clip_params, clip_cfg, dataset=dataset, device=device, mesh=mesh)
         from ..models.adapter import init_adapter_params
 
         if adapter is None:
             adapter = init_adapter_params(torch.Generator().manual_seed(cfg.SEED + 1),
                                           clip_cfg.transformer_width,
                                           cfg.TRAINER.adapter_reduction)
-        self.adapter = tree_map(lambda t: t.to(self.device), adapter)
+        self.adapter = replicate(adapter, self.mesh)
         trainable = dict(self.trainable)
         if cfg.TRAINER.adapter_trainable:
             trainable["_adapter"] = self.adapter
-        self.state = create_train_state(trainable, self.optimizer)
+        self.state = replicate(create_train_state(trainable, self.optimizer), self.mesh)
         kw = self._step_kwargs
         self._step_kwargs = dict(
             loss_name=kw["loss_name"], model_kind=kw["model_kind"], ema=kw["ema"],
             momentum=kw["momentum"], caption_q8=kw["caption_q8"],
             caption_fused=kw["caption_fused"], caption_text=kw["caption_text"],
-            adapter=self.adapter, adapter_trainable=cfg.TRAINER.adapter_trainable)
+            adapter=self.adapter, adapter_trainable=cfg.TRAINER.adapter_trainable,
+            mesh=kw["mesh"])
         self.train_step = make_train_step(self.clip_params, clip_cfg, self.constants,
                                           self.optimizer, self.flags, **self._step_kwargs)

@@ -8,7 +8,9 @@ per-member dumps (``data.pkl``) and the shared retrieval sims
 reference's dump-then-fuse flow; ``cli/gen_final_ans.py`` fuses such dumps
 later.
 
-Not ported yet (ROADMAP.md): the device mesh."""
+Under a data mesh (one process per GPU, ``torchrun``) every rank feeds the
+same image list and gets every score back; rank 0 alone writes
+``impreds.json`` and the dumps."""
 
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ from ..models.prompt import build_prompt_learner
 from ..models.text import encode_text
 from ..ops.ensemble import (DEFAULT_ROUTING, generate_final_answers, normalized_cooccurrence,
                             write_impreds)
+from ..parallel.mesh import data_mesh
+from ..parallel.multihost import is_primary
 from .tta import ModelSpec, TTAEngine, build_model_spec
 
 # the reference eval launcher's grouping: (names, use_evidence, use_freq, n_ctx)
@@ -145,15 +149,25 @@ def load_ensemble_specs(cfg, clip_params: dict, clip_cfg: CLIPConfig,
 
 
 def make_engine(cfg, clip_params, clip_cfg, specs, caption_bank=None, freq_stats=None,
-                device=None) -> TTAEngine:
+                device=None, mesh="auto", shard_bank: bool = False) -> TTAEngine:
     """Config-driven TTAEngine construction: co-occurrence (TEST.use_freq is
-    the master switch; per-member routing lives in ModelSpec.use_freq) and
-    the resolved precision (engine/config.py resolve_test_precision)."""
+    the master switch; per-member routing lives in ModelSpec.use_freq), the
+    resolved precision (engine/config.py resolve_test_precision) and the
+    data mesh. ``mesh="auto"``: the initialized process group's world where
+    it holds more than one rank (one process per card, as the reference's
+    DDP; the JAX package's "auto" takes every device of its one process),
+    else none; a ``DataMesh`` or ``None`` overrides. ``shard_bank``
+    row-shards the caption bank over the mesh."""
     cooc = None
     if freq_stats is not None and cfg.TEST.use_freq:
         cooc = normalized_cooccurrence(np.asarray(freq_stats["adj"], np.float32),
                                        np.asarray(freq_stats["nums"], np.float32))
-    device = resolve_device(device)
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh must be 'auto', a DataMesh or None, got {mesh!r}")
+        mesh = data_mesh(device) if (torch.distributed.is_initialized()
+                                     and torch.distributed.get_world_size() > 1) else None
+    device = mesh.device if mesh is not None else resolve_device(device)
     prec = resolve_test_precision(cfg.TEST.PREC, clip_cfg, device)
     if prec != cfg.TEST.PREC:
         print(f"TEST.PREC {cfg.TEST.PREC!r} resolved to {prec!r} for "
@@ -168,7 +182,7 @@ def make_engine(cfg, clip_params, clip_cfg, specs, caption_bank=None, freq_stats
         crop_size=clip_cfg.image_resolution,
         compute_dtype=torch.float32 if prec == "fp32" else torch.bfloat16,
         precision="int8" if prec == "int8" else "bf16",
-        device=device,
+        device=device, mesh=mesh, shard_bank=shard_bank,
     )
 
 
@@ -186,9 +200,15 @@ def run_full_inference(engine: TTAEngine, image_paths: Sequence[str], batch_size
     [N, C], output_blocks, output_pos_blocks [N, n - 1, C], output_final,
     output_pos_final [N, C]) and ``sim_matrix.pkl`` (sims_all [N, k],
     sims_blocks_all [N, n - 1, k]) unless it is ``""``, then fused with
-    ``routing``."""
+    ``routing``. Under a mesh every rank passes the same ``image_paths``
+    and returns the same scores; rank 0 alone writes files and progress
+    lines (the JAX package writes from every process)."""
     batcher = ImageBatcher(image_paths, batch_size, sort_by_bucket=True)
     inv = batcher.inverse_order
+    primary = is_primary()
+    progress = progress and primary
+    if not primary:
+        out_json = None
     if save_dir is None:
         parts = []
         batches = (images for images, _ in batcher)
@@ -228,7 +248,7 @@ def run_full_inference(engine: TTAEngine, image_paths: Sequence[str], batch_size
     data = {name: {k: np.concatenate(v)[inv] for k, v in outs.items()}
             for name, outs in acc.items()}
     sims_blocks = np.concatenate(sims_blocks_all)[inv]
-    if save_dir:
+    if save_dir and primary:
         os.makedirs(save_dir, exist_ok=True)
         with open(os.path.join(save_dir, "sim_matrix.pkl"), "wb") as f:
             pickle.dump({"sims_all": np.concatenate(sims_all)[inv],

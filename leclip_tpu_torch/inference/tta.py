@@ -25,9 +25,17 @@ retrieval sims, the dict that ``ops/ensemble.generate_final_answers`` fuses
 (the reference's dump-then-fuse flow). ``run_batch_multidispatch`` is its
 independently built check.
 
-Not ported yet (ROADMAP.md): the device mesh and ``shard_bank``, and the
-engine's ``resize_impl="gather"`` option (the gather sampler itself is
-ops/crops.py ``crop_and_resize``)."""
+Under a data mesh (``mesh=``, a ``parallel.mesh.DataMesh``: one process per
+GPU) every rank is given the same image list; the batch is padded with its
+last image to a multiple of the world, each rank scores its own rows, and
+the scores are gathered (``fetch_global``), so every rank returns the full
+[B, C]. Parameters, members and the co-occurrence are broadcast from rank 0.
+With ``shard_bank=True`` the caption bank is zero-padded to a multiple of
+the world and row-sharded, and retrieval runs the ring kNN of
+parallel/retrieval.py; otherwise every rank holds the whole bank.
+
+Not ported yet (ROADMAP.md): the engine's ``resize_impl="gather"`` option
+(the gather sampler itself is ops/crops.py ``crop_and_resize``)."""
 
 from __future__ import annotations
 
@@ -53,6 +61,8 @@ from ..ops.ensemble import (DEFAULT_ROUTING, adjust_predictions, aggregate_block
                             routing_vector)
 from ..ops.preprocess import clip_normalize
 from ..ops.resize_matmul import crop_and_resize_matmul, crop_and_resize_matmul_batch
+from ..parallel.mesh import DataMesh, fetch_global, gather_rows, put_global, replicate
+from ..parallel.retrieval import retrieval_augment_sharded
 
 DEFAULT_BUCKETS: Tuple[Tuple[int, int], ...] = (
     (256, 256), (384, 512), (512, 384), (512, 512), (512, 768), (768, 512),
@@ -107,11 +117,22 @@ def build_model_spec(clip_params: dict, clip_cfg: CLIPConfig, trainable: dict,
 
 class Staged(NamedTuple):
     n_boxes: int
-    batch: int
+    batch: int             # this rank's rows (all rows without a mesh)
     shared: bool
     images: torch.Tensor   # [B, bh, bw, 3] uint8 on the device
     boxes: torch.Tensor    # [n, 4] (shared) or [B, n, 4]
     content: np.ndarray    # [B, 2] content (h, w)
+    n_real: int            # the caller's images before the mesh padding
+
+
+class MeshRows(NamedTuple):
+    """A dispatched batch under a mesh: this rank's rows on its device,
+    gathered over the ranks and cut to the caller's ``n_real`` images by
+    ``TTAEngine._fetch``."""
+
+    rows: torch.Tensor
+    mesh: DataMesh
+    n_real: int
 
 
 class TTAEngine:
@@ -133,8 +154,14 @@ class TTAEngine:
         precision: str = "bf16",
         bf16_fused: Optional[bool] = None,  # None = auto (bf16 ViT on CUDA)
         device=None,
+        mesh: Optional[DataMesh] = None,    # batch split over the ranks
+        shard_bank: bool = False,           # row-shard the bank: ring kNN retrieval
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.shard_bank = bool(shard_bank)
+        if self.shard_bank and (mesh is None or caption_bank is None):
+            raise ValueError("shard_bank=True needs both a mesh and a caption_bank")
         if precision not in ("bf16", "int8"):
             raise ValueError(f"unknown precision {precision!r}")
         if precision == "int8" and not clip_cfg.is_vit:
@@ -144,8 +171,8 @@ class TTAEngine:
             bf16_fused = (precision == "bf16" and clip_cfg.is_vit
                           and compute_dtype == torch.bfloat16 and self.device.type == "cuda")
         self._fused = bool(bf16_fused) and precision == "bf16" and clip_cfg.is_vit
-        to_dev = lambda t: t.to(self.device)  # noqa: E731
-        self.clip_params = tree_map(to_dev, clip_params)
+        to_dev = self._replicated
+        self.clip_params = to_dev(clip_params)
         if self._fused or (precision == "int8" and self.device.type == "cuda"):
             # the CUDA kernels take bf16 parameters: cast the image tower once
             self.clip_params = dict(self.clip_params)
@@ -155,7 +182,7 @@ class TTAEngine:
         if precision == "int8":
             from ..ops.quant import quantize_stack_on_device
 
-            self._q8 = quantize_stack_on_device(self.clip_params["visual"]["blocks"])
+            self._q8 = quantize_stack_on_device(self.clip_params["visual"]["blocks"], mesh=mesh)
         self.clip_cfg = clip_cfg
         self.models = {
             name: spec._replace(trainable=tree_map(to_dev, spec.trainable),
@@ -163,10 +190,22 @@ class TTAEngine:
             for name, spec in models.items()
         }
         self.scales = tuple(scales)
-        self.caption_bank = (None if caption_bank is None
-                             else torch.as_tensor(caption_bank).to(self.device))
+        self.caption_bank = None
+        if caption_bank is not None:
+            bank = torch.as_tensor(caption_bank)
+            if self.shard_bank:
+                # zero-pad (not wrap): the ring search excludes pad rows by
+                # index (n_valid), so any bank retrieves as the replicated
+                # path does; each rank keeps its contiguous rows
+                self._bank_n_valid = bank.shape[0]
+                pad = (-bank.shape[0]) % mesh.world
+                bank = torch.cat([bank, bank.new_zeros((pad,) + tuple(bank.shape[1:]))])
+                self._bank_rows = bank.shape[0]
+                self.caption_bank = put_global(bank, mesh)
+            else:
+                self.caption_bank = to_dev(bank)
         self.cooccurrence = (None if cooccurrence is None else
-                             torch.as_tensor(np.asarray(cooccurrence, np.float32)).to(self.device))
+                             to_dev(torch.as_tensor(np.asarray(cooccurrence, np.float32))))
         self.use_freq = use_freq and cooccurrence is not None
         self.topk = topk
         self.block_threshold = block_threshold
@@ -178,6 +217,13 @@ class TTAEngine:
         self.n_blocks = sum(counts)
         self._groups = None
         self._routing = None
+
+    def _replicated(self, tree):
+        """``tree`` on the engine's device; under a mesh rank 0's value on
+        every rank."""
+        if self.mesh is not None:
+            return replicate(tree, self.mesh)
+        return tree_map(lambda t: t.to(self.device), tree)
 
     # ------------------------------ members ---------------------------------
 
@@ -213,6 +259,31 @@ class TTAEngine:
             dtype=torch.long, device=self.device))
         return groups
 
+    # --------------------------- mesh helpers -------------------------------
+
+    def _mesh_pad(self, images: Sequence[np.ndarray]):
+        """Pad the image list (by repeating the last image) so the batch
+        divides the world; returns (padded list, original count)."""
+        images = list(images)
+        b = len(images)
+        pad = 0 if self.mesh is None else (-b) % self.mesh.world
+        return images + [images[-1]] * pad, b
+
+    def _put_batch(self, x: np.ndarray) -> torch.Tensor:
+        """A host array of the whole batch → this rank's rows on the device
+        (every rank holds the same array, ``put_global``), all of it
+        without a mesh."""
+        if self.mesh is None:
+            return torch.from_numpy(x).to(self.device)
+        return put_global(x, self.mesh)
+
+    def _host(self, out: torch.Tensor, dim: int = 0) -> np.ndarray:
+        """Device rows → host fp32, every rank's rows along ``dim`` under a
+        mesh."""
+        if self.mesh is not None:
+            return fetch_global(out.float(), self.mesh, dim)
+        return out.float().cpu().numpy()
+
     # ------------------------------- passes ---------------------------------
 
     def prepare_batch(self, images: Sequence[np.ndarray]):
@@ -234,15 +305,22 @@ class TTAEngine:
 
     def stage_batch_fused(self, images: Sequence[np.ndarray]) -> Staged:
         """Host prep + upload for one batch, without compute: lets a producer
-        thread stage batches ahead of the compute loop."""
+        thread stage batches ahead of the compute loop. Under a mesh the
+        host prepares the whole (padded) batch, as every rank does, and
+        uploads this rank's rows."""
+        images, b0 = self._mesh_pad(images)
         padded, boxes, content, _ = self.prepare_batch(images)
         b, n = boxes.shape[0], boxes.shape[1]
         # every image with the same content size shares one crop geometry,
         # built once for the batch
         shared = bool((content == content[0]).all())
-        im_d = torch.from_numpy(padded).to(self.device)
-        bx_d = torch.from_numpy(boxes[0] if shared else boxes).to(self.device)
-        return Staged(n, b, shared, im_d, bx_d, content)
+        im_d = self._put_batch(padded)
+        bx_d = (torch.from_numpy(boxes[0]).to(self.device) if shared
+                else self._put_batch(boxes))
+        if self.mesh is not None:
+            per = b // self.mesh.world
+            b, content = per, content[self.mesh.rank * per: (self.mesh.rank + 1) * per]
+        return Staged(n, b, shared, im_d, bx_d, content, b0)
 
     def _crops(self, staged: Staged) -> torch.Tensor:
         imgs = staged.images.to(self.compute_dtype) / 255.0
@@ -268,7 +346,12 @@ class TTAEngine:
 
     def _retrieve(self, feats):
         """(augmented global features, top-k scores): one exact search of
-        the caption bank for every member."""
+        the caption bank for every member; with ``shard_bank`` the ring kNN
+        over the row-sharded bank."""
+        if self.shard_bank:
+            return retrieval_augment_sharded(feats.global_feat, self.caption_bank, self.topk,
+                                             self.mesh, n_valid=self._bank_n_valid,
+                                             bank_rows=self._bank_rows)
         if self.caption_bank is not None:
             return retrieval_augment(feats.global_feat, self.caption_bank, self.topk)
         n = feats.global_feat.shape[0]
@@ -319,19 +402,28 @@ class TTAEngine:
         c = stack.shape[-1]
         return stack.permute(1, 2, 0).gather(2, routing[None, :, None].expand(b, c, 1))[..., 0]
 
-    def dispatch_staged_fused(self, staged: Staged) -> torch.Tensor:
+    def dispatch_staged_fused(self, staged: Staged):
         """Score a staged batch → on-device fused [B, C] (not synchronised):
-        crops → image tower → retrieval → members, fusion and routing."""
+        crops → image tower → retrieval → members, fusion and routing. Under
+        a mesh, a :class:`MeshRows` of this rank's rows, which
+        :meth:`_fetch` gathers."""
         self._model_groups()
         with torch.inference_mode():
             feats, aug, scores = self._image_pass(staged)
-            return self._score(feats, aug, scores, staged.batch, staged.n_boxes)
+            out = self._score(feats, aug, scores, staged.batch, staged.n_boxes)
+        if self.mesh is None:
+            return out
+        return MeshRows(out, self.mesh, staged.n_real)
 
-    def dispatch_batch_fused(self, images: Sequence[np.ndarray]) -> torch.Tensor:
+    def dispatch_batch_fused(self, images: Sequence[np.ndarray]):
         return self.dispatch_staged_fused(self.stage_batch_fused(images))
 
     @staticmethod
-    def _fetch(out: torch.Tensor) -> np.ndarray:
+    def _fetch(out) -> np.ndarray:
+        """A dispatched batch → host fp32 [B, C]: under a mesh every rank's
+        rows gathered and cut to the caller's images."""
+        if isinstance(out, MeshRows):
+            return fetch_global(out.rows.float(), out.mesh)[: out.n_real]
         return out.float().cpu().numpy()
 
     def run_batch_fused(self, images: Sequence[np.ndarray]) -> np.ndarray:
@@ -362,31 +454,45 @@ class TTAEngine:
         copy to pinned host memory is queued right behind the batch's
         kernels, with an event after it: finishing batch i then waits for
         batch i's copy only, not for batch i+1, which the caller has queued
-        since, so the host's next decode overlaps batch i+1's compute."""
+        since, so the host's next decode overlaps batch i+1's compute. Under
+        a mesh every rank's flat buffer is gathered first."""
         staged = self.stage_batch_fused(images)
         self._model_groups()
+        world = 1 if self.mesh is None else self.mesh.world
         with torch.inference_mode():
             feats, aug, scores = self._image_pass(staged)
             flat = self._dump_flat(feats, aug, scores, staged.batch, staged.n_boxes)
+            if self.mesh is not None:
+                flat = gather_rows(flat, self.mesh)
             done = None
             if flat.is_cuda:
                 host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
                 flat = host.copy_(flat, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record()
-        return flat, done, staged.batch, staged.n_boxes
+        return flat, done, staged.batch, staged.n_boxes, staged.n_real, world
 
     def finish_batch_dump(self, handle) -> Dict[str, dict]:
         """Wait for a :meth:`dispatch_batch_dump` handle's copy to the host
         (the one synchronisation) and unpack it into the per-member dump dict: output /
         output_pos [b, C], output_blocks / output_pos_blocks [b, n - 1, C],
         output_final / output_pos_final [b, C], and ``"_sims"`` with
-        sims_all [b, k] and sims_blocks_all [b, n - 1, k]; numpy fp32."""
-        flat, done, b, n = handle
+        sims_all [b, k] and sims_blocks_all [b, n - 1, k]; numpy fp32.
+        Under a mesh each rank's part is unpacked and the parts joined along
+        the batch, cut to the caller's images."""
+        flat, done, b, n, b0, world = handle
         if done is not None:
             done.synchronize()
         # a copy, so the pinned block goes back to the allocator's cache
-        flat = flat.numpy().copy()
+        parts = [self._unpack_dump(chunk, b, n) for chunk in np.split(flat.numpy().copy(), world)]
+        if world == 1:
+            return parts[0]
+        return {name: {k: np.concatenate([p[name][k] for p in parts])[:b0] for k in outs}
+                for name, outs in parts[0].items()}
+
+    def _unpack_dump(self, flat: np.ndarray, b: int, n: int) -> Dict[str, dict]:
+        """One rank's flat dump buffer (:meth:`_dump_flat`) → the per-member
+        dump dict of its ``b`` images."""
         n_cls = next(iter(self.models.values())).text_feats["pos"].shape[0]
         off = 0
 
@@ -436,21 +542,23 @@ class TTAEngine:
         co-occurrence adjustment and block aggregation on the host per member
         — the independent check of :meth:`run_batch`."""
         staged = self.stage_batch_fused(images)
-        b, n = staged.batch, staged.n_boxes
+        n, b0 = staged.n_boxes, staged.n_real
+        b = staged.batch * (1 if self.mesh is None else self.mesh.world)
         with torch.inference_mode():
             feats, aug, scores = self._image_pass(staged)
             per_model = {}
             for names, flags, _, tr, tf in self._model_groups():
                 out = self._score_group(flags, tr, tf, feats, aug, scores)
-                g_all, l_all = self._fetch(out.logits_global), self._fetch(out.logits_local)
+                # [m, b·n, C]: every rank's rows along the middle axis
+                g_all, l_all = self._host(out.logits_global, 1), self._host(out.logits_local, 1)
                 for mi, name in enumerate(names):
                     per_model[name] = (g_all[mi], l_all[mi])
-            sims = self._fetch(scores).reshape(b, n, -1)
+            sims = self._host(scores).reshape(b, n, -1)[:b0]
         cooc = None if self.cooccurrence is None else self.cooccurrence.float().cpu()
         results: Dict[str, dict] = {}
         for name in self.models:
             g_flat, l_flat = per_model[name]
-            g, loc = g_flat.reshape(b, n, -1), l_flat.reshape(b, n, -1)
+            g, loc = g_flat.reshape(b, n, -1)[:b0], l_flat.reshape(b, n, -1)[:b0]
             if self._member_use_freq(self.models[name]):
                 loc = adjust_predictions(torch.from_numpy(loc), cooc).numpy()
             output, output_blocks = g[:, 0], g[:, 1:]

@@ -270,3 +270,15 @@ def test_logits_from_features(trainable: dict, text_feats: Dict[str, torch.Tenso
     logits_local, logits_neg = _aggregate_local(
         image_feats.spatial_feats, text_feats, logit_scale, tmp_scale, flags.use_evidence)
     return DenseTestOutput(logits_global, logits_local, logits_neg, raw_sim, topk_scores)
+
+
+def dense_test_forward(clip_params: dict, clip_cfg: CLIPConfig, trainable: dict,
+                       text_feats: Dict[str, torch.Tensor], images: torch.Tensor,
+                       flags: DenseFlags, caption_bank: Optional[torch.Tensor] = None,
+                       topk: int = 10) -> DenseTestOutput:
+    """Image-side test forward with dense + global logits: the image tower
+    on CLIP-normalised ``images`` [B, H, W, 3], then
+    :func:`test_logits_from_features`."""
+    image_feats = encode_image_features(clip_params, clip_cfg, images, flags)
+    return test_logits_from_features(trainable, text_feats, image_feats, flags,
+                                     caption_bank=caption_bank, topk=topk)

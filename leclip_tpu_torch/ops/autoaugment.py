@@ -120,3 +120,11 @@ def autoaugment_apply(img: torch.Tensor, draws: AutoAugmentDraws,
         if bool(draws.u_apply[s] < float(tbl["p"][i, s])):
             img = AA_OPS[int(tbl["op"][i, s])][1](img, lvl, draws.args[s])
     return img
+
+
+def autoaugment(generator: torch.Generator, img: torch.Tensor,
+                policy: str = "mlc") -> torch.Tensor:
+    """One drawn sub-policy in one call: :func:`sample_autoaugment` from
+    ``generator``, then :func:`autoaugment_apply` (the JAX package's
+    ``autoaugment(key, img, policy)``, a generator in place of the key)."""
+    return autoaugment_apply(img, sample_autoaugment(generator, policy), policy)

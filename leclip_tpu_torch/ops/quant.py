@@ -120,11 +120,14 @@ def quantize_block_stack(blocks: dict) -> dict:
     }
 
 
-def quantize_stack_on_device(blocks: dict) -> dict:
+def quantize_stack_on_device(blocks: dict, mesh=None) -> dict:
     """The int8 stack of a transformer block pytree, on the blocks' device:
-    the single entry point of every int8 consumer (TTA engine, caption bank).
-    On CUDA the width must be one the kernels take; it raises here, at build
-    time, instead of at the first scored batch."""
+    the single entry point of every int8 consumer (TTA engine, caption bank,
+    the trainer's caption branch). On CUDA the width must be one the
+    kernels take; it raises here, at build time, instead of at the first
+    scored batch. Under a data mesh (``parallel.mesh.DataMesh``) rank 0's
+    codes and scales are broadcast, so every rank holds bitwise the same
+    stack."""
     qkv = blocks["attn"]["qkv_kernel"]
     if qkv.device.type == "cuda":
         from .quant_kernels import check_kernel_widths
@@ -132,4 +135,9 @@ def quantize_stack_on_device(blocks: dict) -> dict:
         check_kernel_widths("quantize_stack_on_device", int(qkv.shape[-2]),
                             int(blocks["mlp"]["fc_kernel"].shape[-1]))
     with torch.no_grad():
-        return quantize_block_stack(blocks)
+        q8 = quantize_block_stack(blocks)
+    if mesh is not None:
+        from ..parallel.mesh import replicate
+
+        q8 = replicate(q8, mesh)
+    return q8

@@ -208,3 +208,11 @@ def randaugment_apply(img: torch.Tensor, draws: RandAugmentDraws,
     for op, sign, args in zip(draws.op.tolist(), draws.sign.to(_F32).cpu(), draws.args):
         img = RANDAUGMENT_OPS[op](img, sign * level, args)
     return img
+
+
+def randaugment(generator: torch.Generator, img: torch.Tensor, num_ops: int = 2,
+                magnitude: float = 9.0) -> torch.Tensor:
+    """The RandAugment recipe in one call: :func:`sample_randaugment` from
+    ``generator``, then :func:`randaugment_apply` (the JAX package's
+    ``randaugment(key, img, ...)``, a generator in place of the key)."""
+    return randaugment_apply(img, sample_randaugment(generator, num_ops), magnitude)

@@ -291,10 +291,20 @@ def test_three_train_steps_match_jax(vit_params):
 
 
 def test_prefetch_raises_and_cpu_tuner_needs_no_card(vit_params):
+    """A CPU tuner needs no card, and ``fit(prefetch=2)`` (the batches
+    uploaded by a producer thread) runs instead of raising: its two steps
+    end on bitwise the parameters of the inline loop's."""
     t = tft.CLIPFineTuner(to_port(vit_params), VIT, device="cpu")
     assert t.device.type == "cpu" and t.state.step == 0
-    with pytest.raises(ValueError, match="prefetch"):
-        t.fit([], prefetch=2)
+    batches = [{"image": _images(4, 10 + i), "tokens": _tokens(4, 20 + i)} for i in range(2)]
+    finals = []
+    for prefetch in (0, 2):
+        tuner = tft.CLIPFineTuner(to_port(vit_params), VIT, lr=1e-3, warmup_steps=0,
+                                  total_steps=10, device="cpu")
+        finals.append(tuner.fit(iter(batches), log_every=10, prefetch=prefetch))
+    assert finals[0].step == finals[1].step == 2
+    for (k, a), (_, b) in zip(_flat(finals[0].params), _flat(finals[1].params)):
+        np.testing.assert_array_equal(a, b, err_msg=k)
 
 
 # ------------------------------ pairs pipeline ------------------------------

@@ -32,6 +32,9 @@ FINETUNE = ("engine/finetune.py", "models/gcn.py", "models/zoo.py", "ops/randaug
             "ops/autoaugment.py", "ops/_aa_policies.py", "ops/quant_stress.py",
             "data/synth_images.py", "data/gen_captions.py", "cli/gen_captions.py",
             "data/loader.py", "models/transformer.py")
+# the data mesh: one process per GPU over torch.distributed
+PARALLEL = ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py",
+            "parallel/retrieval.py")
 
 
 def _port_files():
@@ -205,3 +208,65 @@ def test_finetuner_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         CLIPFineTuner(params, cfg)
     assert CLIPFineTuner(params, cfg, device="cpu").device.type == "cpu"
+
+
+def test_parallel_modules_are_scanned_and_import_alone():
+    import importlib
+
+    files = _port_files()
+    for rel in PARALLEL:
+        path = os.path.join(ROOT, "leclip_tpu_torch", rel)
+        assert path in files, rel
+        importlib.import_module("leclip_tpu_torch." + rel[:-3].replace("/", "."))
+
+
+def test_parallel_entry_points_raise_without_cuda(no_cuda, monkeypatch, tmp_path):
+    """The mesh's device defaults to the card (cuda:LOCAL_RANK): without one
+    every way in raises before it joins a group; the CPU is used when asked
+    for."""
+    import torch.distributed as dist
+
+    from leclip_tpu_torch.parallel import multihost
+    from leclip_tpu_torch.parallel.mesh import data_mesh, local_mesh
+
+    calls = [lambda: multihost.local_device(None), lambda: multihost.local_device("cuda"),
+             lambda: data_mesh(), lambda: local_mesh(),
+             lambda: multihost.initialize(init_method=f"file://{tmp_path}/rdv", world_size=1,
+                                          rank=0)]
+    for var, value in (("RANK", "0"), ("WORLD_SIZE", "1"), ("MASTER_ADDR", "localhost"),
+                       ("MASTER_PORT", "29500"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(var, value)
+    calls.append(lambda: multihost.initialize())
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not dist.is_initialized()
+    mesh = data_mesh("cpu")
+    assert (mesh.device.type, mesh.rank, mesh.world, mesh.distributed) == ("cpu", 0, 1, False)
+
+
+def _jax_top_level_names():
+    """The keys of the JAX package's table of top-level names."""
+    tree = ast.parse(open(os.path.join(ROOT, "leclip_tpu", "__init__.py")).read())
+    tables = [n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
+              and any(getattr(t, "id", "") == "table" for t in n.targets)]
+    assert len(tables) == 1
+    return {k.value for k in tables[0].keys}
+
+
+def test_top_level_names_resolve_to_port_modules():
+    """Every name of the JAX package's table of top-level names is in the
+    port's, and each resolves to the object of the port module it names."""
+    import importlib
+
+    import leclip_tpu_torch as port
+
+    assert set(port._NAMES) == _jax_top_level_names()
+    for name, (module, attr) in port._NAMES.items():
+        mod = importlib.import_module(f"leclip_tpu_torch.{module}")
+        obj = getattr(port, name)
+        assert obj is getattr(mod, attr), name
+        assert getattr(obj, "__module__", mod.__name__).startswith("leclip_tpu_torch."), name
+    with pytest.raises(AttributeError):
+        port.no_such_name  # noqa: B018
+

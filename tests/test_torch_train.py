@@ -349,18 +349,25 @@ def test_trainer_routes_the_caption_branch():
 
 
 @pytest.mark.parametrize("opt", [["TRAIN.prefetch_batches", "2"]], ids=["prefetch_batches"])
-def test_trainer_refuses_options_it_does_not_run(opt):
-    """Options of the JAX trainer that the port does not run raise at
-    construction instead of being ignored."""
+def test_trainer_refuses_options_it_does_not_run(opt, tmp_path):
+    """The JAX trainer's options are run, not refused: with
+    TRAIN.prefetch_batches the batches are uploaded by a producer thread
+    (parallel/mesh.prefetch_sharded), and train() ends on bitwise the
+    parameters of the inline loop."""
     from leclip_tpu_torch.data.datasets import CaptionDataset
 
-    toks, labs = captions(16)
-    with pytest.raises(NotImplementedError, match=opt[0]):
-        ttr.CaptionDistillTrainer(tsetup(opts=OPTS + ["OUTPUT_DIR", ""] + opt),
-                                  to_port(jax.device_get(jclip.init_clip_params(
-                                      jax.random.PRNGKey(0), TINY))),
-                                  TINY, dataset=CaptionDataset(toks, labs, [], CLASSES),
-                                  device="cpu")
+    toks, labs = captions(48)
+    params = to_port(jax.device_get(jclip.init_clip_params(jax.random.PRNGKey(0), TINY)))
+    finals = []
+    for i, extra in enumerate(([], opt)):
+        base = OPTS + ["OUTPUT_DIR", str(tmp_path / str(i)), "OPTIM.MAX_EPOCH", "2"]
+        tr = ttr.CaptionDistillTrainer(tsetup(opts=base + extra), params, TINY,
+                                       dataset=CaptionDataset(toks, labs, [], CLASSES),
+                                       device="cpu")
+        finals.append(tr.train(resume=False))
+    assert finals[0].step == finals[1].step == 6
+    for k, v in finals[0].params.items():
+        assert torch.equal(v, finals[1].params[k]), k
 
 
 def test_train_forwards_match_jax():
