@@ -3,16 +3,18 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. device: card name, power limit, the nvcc build of every kernel, and in
-     the SASS of the four libraries whose products run on the Hopper GEMMs
-     the wgmma (HGMMA bf16 in attn_block_bf16, mlp_bf16 and
-     attn_block_int8's out-projection; IGMMA int8 in attn_block_int8 and
-     mlp_int8, which must hold no mma.sync IMMA) and UTMALDG (TMA load)
-     instructions that show it, and in flash_attention's the HMMA (mma.sync)
-     of its bf16 tensor-core path;
-  2. kernels: each of the seven hand-written kernels (attn_block_bf16,
-     mlp_bf16, ln_quant, attn_block_int8, mlp_int8, resident_attention,
-     flash_attention) against its plain PyTorch version on the card at the
+  1. device: card name, power limit, the nvcc build of every kernel (eight
+     libraries, one nvcc each, all started together), and in the SASS of the
+     four libraries whose products run on the Hopper GEMMs the wgmma (HGMMA
+     bf16 in attn_block_bf16, mlp_bf16 and attn_block_int8's out-projection;
+     IGMMA int8 in attn_block_int8 and mlp_int8, which must hold no mma.sync
+     IMMA) and UTMALDG (TMA load) instructions that show it, in
+     flash_attention's the HMMA (mma.sync) of its bf16 tensor-core path, and
+     in conv_bf16's HGMMA, UTMALDG and LDGSTS (its cp.async gather);
+  2. kernels: each of the seven kernels of the ViT and text paths
+     (attn_block_bf16, mlp_bf16, ln_quant, attn_block_int8, mlp_int8,
+     resident_attention, flash_attention; the eighth, conv_bf16, is held at
+     the RN50 trunk's shapes in phase 5) against its plain version on the card at the
      main paths' shapes (ViT-B/16 crops, caption-bank text, the trainer's
      [1024, 77, 512] causal caption branch for the five block kernels; the attention
      kernels also at ViT-L/14's 264 tokens, in fp32 and bf16), with
@@ -46,12 +48,16 @@ Phases (any failure exits non-zero and prints no result line):
      TEST.PREC auto (→ bf16 for a ResNet tower) with its 8,192-row bf16
      caption bank through attn_block_bf16 + mlp_bf16, make_engine, three
      staged batches and run_full_inference → impreds.json, the image tower
-     launching no hand-written kernel; then TEST.PREC fp32; bf16 held
-     against fp32, the fp32 tower held to full fp32 with TF32 switched on
-     around it; and its bf16 batch split into stages as in phase 3, then
-     again with every convolution on cuDNN in bf16 (the route before the
-     trunk was made independent of the batch order), the trunk's two times
-     side by side;
+     launching conv_bf16 in each of its 55 convolutions (every RN50 bf16
+     convolution, on the card and in every batch); then TEST.PREC fp32; bf16
+     held against fp32, the fp32 tower held to full fp32 with TF32 switched
+     on around it; conv_bf16 against conv_bf16_plain at each of the 55
+     trunk shapes on the engine's own 610 crops (within 1 bf16 ulp of
+     max(|plain|, 2^-8 sum|a||w|); the share exactly equal reported), each
+     timed beside its plain version and cuDNN bf16; and the bf16 batch split
+     into stages as in phase 3 on conv_bf16, then on cuDNN bf16 throughout
+     and on the route before conv_bf16 (the 7x7-grid 3x3 convolutions in
+     fp32), the trunk's three times side by side;
   6. the caption-distillation trainer that all 19 recipes run, at RN50's
      text width (12x512, seeded random fp32 weights) on 8,192 synthetic
      captions with token-decided labels over the 80 COCO classes, the ema
@@ -90,13 +96,16 @@ Phases (any failure exits non-zero and prints no result line):
      of engine.run_batch_fused, /healthz 305 crops, /metrics 128 requests
      and no error; images/s, p50/p99 latency, padding share, peak memory;
      128 more at a 50 ms micro-batch window (reported); then 128 more with
-     one POST /reload in flight; the RN50 batch witness, also split by
-     stage (crops, trunk, pool, dense projection, scores) under each
-     setting tried against it, the defaults required to read max|d| = 0 at
-     every stage with the batch reversed, and by layer (each convolution of
-     the trunk alone on its input, the port's route required to read 0,
-     cuDNN bf16 throughout reported beside it); and one line on whether
-     the native JPEG decoder's toolchain (g++, jpeglib.h, libjpeg) exists.
+     one POST /reload in flight; the RN50 batch witness (run again, reversed,
+     another company, 5 padded to 8 against 5 alone: the bf16 engine must
+     read 0 in all four, the fp32 engine's reported), also split by stage
+     (crops, trunk, pool, dense projection, scores) and by layer (each of
+     the 55 convolutions alone on its input), each over batches of 1, 2 and
+     5 images, 5 padded to 8 and the 8 reversed against the same images in
+     the batch of 8, on three routes side by side: cuDNN bf16, the route
+     before conv_bf16 and conv_bf16, which must read 0 everywhere; and one
+     line on whether the native JPEG decoder's toolchain (g++, jpeglib.h,
+     libjpeg) exists.
   8. after phase 6, on its fp32 trainer: the native JPEG decoder (what the
      probe finds, its build from runtime/, 64 JPEGs 480x640 bitwise equal to
      PIL with none sent to PIL, images/s against PIL); trainer.validate()
@@ -147,6 +156,15 @@ Phases (any failure exits non-zero and prints no result line):
      the replicated one. The ranks' launch counts join the kernels line.
      ``python3 chip_smoke.py --only-phase10`` builds the kernels and runs
      this phase alone, without the result lines.
+RN50's convolutions (models/resnet.conv2d): every bf16 one runs the
+hand-written conv_bf16 kernel on the card (its plain version, the fp32 sum
+of the widened values rounded once, on the CPU), every fp32 one cuDNN in
+full fp32. The CPU tests of that route, against JAX:
+``JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_resnet.py``; the
+card tests of every kernel: ``python -m pytest --noconftest -m cuda
+tests/test_torch_cuda_kernels.py``; the convolution kernel alone:
+``python3 scripts/probe_conv_kernel.py``.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 
@@ -738,12 +756,28 @@ PATH_KERNELS = {  # path: launches of each of its kernels per layer
 }
 
 
-def expect_launches(what, counts, path, n):
-    """The kernels of ``path`` ran in each of n layers and no other kernel ran."""
+RN50_CONVS = 55  # convolutions of the RN50 trunk: conv_bf16 launches of one bf16 tower forward
+
+
+def expect_launches(what, counts, path, n, rn_forwards=0):
+    """The kernels of ``path`` ran in each of n layers, conv_bf16 once per
+    convolution of each of ``rn_forwards`` bf16 RN50 tower forwards (None:
+    of a positive number of them), and no other kernel ran."""
     want = dict.fromkeys(counts, 0)
     want.update({k: m * n for k, m in PATH_KERNELS[path].items()})
+    convs = counts.get("conv_bf16", 0)
+    if rn_forwards is None and (convs <= 0 or convs % RN50_CONVS):
+        raise AssertionError(f"{what}: conv_bf16 launched {convs} times, not a positive "
+                             f"multiple of the trunk's {RN50_CONVS} convolutions")
+    want["conv_bf16"] = convs if rn_forwards is None else RN50_CONVS * rn_forwards
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def rn_bf16(engine) -> bool:
+    """Whether the engine's image tower is a bf16 ResNet (conv_bf16 in
+    every convolution)."""
+    return not engine.clip_cfg.is_vit and engine.compute_dtype == torch.bfloat16
 
 
 # (tower, path): the engine make_engine must build — (precision, fused bf16
@@ -753,7 +787,8 @@ ENGINES = {
     ("vit", "bf16"): (("bf16", True, False, torch.bfloat16), "bf16"),
     ("vit", "int8"): (("int8", False, True, torch.bfloat16), "int8"),
     ("vit", "fp32"): (("bf16", False, False, torch.float32), "fp32"),
-    # a ResNet tower holds no hand-written kernel (cuDNN convs, a plain pool)
+    # a ResNet tower's layers launch no block kernel (a bf16 trunk launches
+    # conv_bf16 in each convolution: expect_launches' rn_forwards)
     ("rn", "bf16"): (("bf16", False, False, torch.bfloat16), "plain"),
     ("rn", "fp32"): (("bf16", False, False, torch.float32), "plain"),
 }
@@ -791,7 +826,8 @@ def score_path(prec, opt_prec, params, clip_cfg, specs, bank, freq, images, card
         f"{str(engine.compute_dtype).split('.')[-1]}; {N_IMAGES} images 480x640 "
         f"-> {crops} crops per batch; scoring launches {counts} (expected: "
         f"{PATH_KERNELS[launch_path] or 'none'} in each of 12 layers x {n_batches} batches)")
-    expect_launches(f"{tag} scoring", counts, launch_path, 12 * n_batches)
+    expect_launches(f"{tag} scoring", counts, launch_path, 12 * n_batches,
+                    rn_forwards=n_batches if rn_bf16(engine) else 0)
     fused = outs[0]
     if fused.shape != (N_IMAGES, 80) or not np.isfinite(fused).all():
         raise AssertionError(f"fused scores bad: shape {fused.shape}")
@@ -1047,6 +1083,137 @@ def rn_tower_flops(cfg, res=224) -> float:
     return float(f)
 
 
+# ------------------------- RN50 trunk: conv_bf16 -----------------------------
+# each convolution of the bf16 trunk against the kernel's plain version, and
+# the routes the batch witnesses compare
+
+# of S = sum |a||w|: the least magnitude whose bf16 ulp bounds |kernel - plain|
+CONV_FLOOR = 2.0 ** -8
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 at |v| (8 significant bits), for normal values."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -126))) - 7)
+
+
+def conv_exact_grid(x, kernel, stride=1):
+    """The bf16 trunk's route before conv_bf16 (kept as a witness comparator):
+    cuDNN in bf16, except 3x3 convolutions over at most 7x7 positions, which
+    ran as the fp32 sum of the widened values rounded once."""
+    from leclip_tpu_torch.models import resnet
+    from leclip_tpu_torch.ops.conv_kernels import conv_bf16_plain
+
+    if kernel.shape[-1] > 1 and x.shape[1] * x.shape[2] <= 7 * 7:
+        return conv_bf16_plain(x, kernel, stride)
+    return resnet.conv2d_native(x, kernel, stride)
+
+
+def conv_routes():
+    """{route: conv2d function} for the RN50 batch witnesses: cuDNN bf16 for
+    every shape, the route before this kernel, and the port's conv2d."""
+    from leclip_tpu_torch.models import resnet
+
+    return {"cuDNN bf16": resnet.conv2d_native, "fp32 at <=7x7 grids": conv_exact_grid,
+            "conv_bf16": resnet.conv2d}
+
+
+@contextlib.contextmanager
+def conv_route(fn):
+    """models/resnet.conv2d replaced by ``fn`` for the duration."""
+    from leclip_tpu_torch.models import resnet
+
+    saved = resnet.conv2d
+    resnet.conv2d = fn
+    try:
+        yield
+    finally:
+        resnet.conv2d = saved
+
+
+def conv_work(x_shape, k_shape, stride):
+    """(operations, bytes) of one convolution: 2 per multiply-add over
+    K = kh*kw*Cin; bf16 input, weight and output each moved once."""
+    b, h, w, cin = x_shape
+    cout, _, kh, kw = k_shape
+    m = b * -(-h // stride) * -(-w // stride)
+    return 2.0 * m * cout * kh * kw * cin, 2.0 * (b * h * w * cin + cout * kh * kw * cin + m * cout)
+
+
+def trunk_conv_check(vis, flat, card, reps=3, time_it=True):
+    """The bf16 trunk over ``flat`` crops with every convolution run by the
+    kernel, each one held on its own input against conv_bf16_plain: within 1
+    bf16 ulp of max(|plain|, CONV_FLOOR * S), S = sum |a||w| the element's
+    own scale (the two round the same exact bf16 products and differ only in
+    the order of an fp32 sum, whose error is a few fp32 ulps of S; where the
+    products cancel, |plain| is far below S and its own ulp below that
+    error). Reports the share of elements exactly equal and the share within
+    1 ulp of |plain| itself; with ``time_it``, times the kernel, the plain
+    version and cuDNN bf16 (conv2d_native, the library call) per
+    convolution. Returns {rows, totals}."""
+    from leclip_tpu_torch.device import no_tf32
+    from leclip_tpu_torch.models import resnet
+    from leclip_tpu_torch.ops.conv_kernels import conv_bf16, conv_bf16_plain, conv_library
+
+    rows = []
+
+    def recording(x, k, stride=1):
+        out = conv_bf16(x, k, stride)
+        plain = conv_bf16_plain(x, k, stride)
+        with no_tf32():
+            scale = conv_library(x.float().abs(), k.float().abs(), stride)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError("conv_bf16: non-finite output")
+        p = plain.float()
+        d = (out.float() - p).abs()
+        tol = bf16_ulp(torch.maximum(p.abs(), CONV_FLOOR * scale))
+        kh = k.shape[-1]
+        row = dict(name=f"{kh}x{kh}/{stride} {x.shape[1]}x{x.shape[2]}x{x.shape[3]}->{k.shape[0]}",
+                   worst=(d / tol).max().item(), exact=(d == 0).float().mean().item(),
+                   own_ulp=(d <= bf16_ulp(p)).float().mean().item(), max_abs=d.max().item())
+        del plain, p, d, tol, scale
+        flops, nbytes = conv_work(tuple(x.shape), tuple(k.shape), stride)
+        row["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        row["bound_by"] = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES \
+            else "bytes"
+        if time_it:
+            row["ms"] = cuda_ms(lambda: conv_bf16(x, k, stride), reps)
+            row["plain_ms"] = cuda_ms(lambda: conv_bf16_plain(x, k, stride), reps)
+            row["library_ms"] = cuda_ms(lambda: resnet.conv2d_native(x, k, stride), reps)
+        rows.append(row)
+        if row["worst"] > 1:
+            raise AssertionError(f"conv_bf16 disagrees with its plain version at {row['name']}: "
+                                 f"{row['worst']:.3g} ulps of max(|plain|, 2^-8 S)")
+        return out
+
+    with conv_route(recording), torch.inference_mode():
+        resnet.resnet_features(flat, vis)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms") if time_it else ("bound_ms",)
+    totals = {k: float(sum(r[k] for r in rows)) for k in keys}
+    by = {b: sum(r["bound_ms"] for r in rows if r["bound_by"] == b)
+          for b in ("bytes", "operations")}
+    totals["bound_by"] = max(by, key=by.get)  # what bounds most of the summed bound
+    totals["max_abs_err"] = max(r["max_abs"] for r in rows)
+    totals["exact"] = float(np.mean([r["exact"] for r in rows]))
+    log(f"[conv_bf16] {len(rows)} trunk convolutions on {flat.shape[0]} crops, each against "
+        f"conv_bf16_plain on its input (tolerance: 1 bf16 ulp of max(|plain|, 2^-8 S), S = "
+        f"sum|a||w|; reason: the same bf16 products, fp32 sums in another order): worst "
+        f"{max(r['worst'] for r in rows):.3g} ulps, max|d| {totals['max_abs_err']:.4g}; share "
+        f"exactly equal {min(r['exact'] for r in rows):.6f}..{max(r['exact'] for r in rows):.6f}"
+        f", within 1 ulp of |plain| itself {min(r['own_ulp'] for r in rows):.8f}.."
+        f"{max(r['own_ulp'] for r in rows):.8f} on {card}")
+    for r in rows:
+        log(f"  {r['name']:>26}: worst {r['worst']:.3g} ulps, exact {r['exact']:.6f}, own-ulp "
+            f"{r['own_ulp']:.8f}"
+            + (f"; {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, cuDNN bf16 {r['library_ms']:.3f}, "
+               f"bound {r['bound_ms']:.3f} by {r['bound_by']})" if time_it else ""))
+    if time_it:
+        log(f"[conv_bf16] the trunk's convolutions in all: {totals['ms']:.3f} ms (plain "
+            f"{totals['plain_ms']:.3f}, cuDNN bf16 {totals['library_ms']:.3f}, bound "
+            f"{totals['bound_ms']:.3f}) on {card}")
+    return dict(rows=rows, totals=totals)
+
+
 def randomize_bn(tree, gen):
     """Every batch norm of a ResNet tree with random running statistics and
     affine (seeded): the JAX init zeroes each bn3 scale, which would leave
@@ -1074,7 +1241,9 @@ def phase_rn50(card, inputs):
     statistics. TEST.PREC auto (→ bf16 for a ResNet tower): the 8,192-row
     bf16 caption bank through the block kernels, six members, make_engine,
     three staged batches and run_full_inference over PNG files →
-    impreds.json; the image tower launches no hand-written kernel. Then
+    impreds.json; the image tower launches conv_bf16 in each of its 55
+    convolutions, each one held against conv_bf16_plain and timed beside
+    cuDNN bf16 (trunk_conv_check). Then
     TEST.PREC fp32 on the same weights widened (the fp32 bank, plain). bf16
     held against fp32; the fp32 tower's convolutions held to full fp32 with
     TF32 switched on around the call."""
@@ -1127,11 +1296,11 @@ def phase_rn50(card, inputs):
         f"{back.shape}, equal to the staged batches")
 
     # bf16 against fp32: each path's own crops and tower, then the scores
-    feats = {}
+    feats, flats = {}, {}
     with torch.inference_mode():
         for prec in ("bf16", "fp32"):
             e = out[prec]["engine"]
-            flat = e._crops(e.stage_batch_fused(images)).flatten(0, 1)
+            flat = flats[prec] = e._crops(e.stage_batch_fused(images)).flatten(0, 1)
             feats[prec] = e._features(flat)
     cos_g = (feats["bf16"].global_feat.float() * feats["fp32"].global_feat.float()
              ).sum(-1).min().item()
@@ -1177,25 +1346,32 @@ def phase_rn50(card, inputs):
         f"{d_tf32:.3g}")
     if d_port > 1e-4:
         raise AssertionError("rn50: the fp32 tower ran in TF32")
+    # conv_bf16 against its plain version at each of the 55 trunk shapes, on
+    # the engine's own crops, with the kernel's, the plain version's and
+    # cuDNN bf16's time per convolution
+    conv = trunk_conv_check(out["bf16"]["engine"].clip_params["visual"], flats["bf16"], card)
+    torch.cuda.empty_cache()
     stages = stage_split("rn50:bf16", out["bf16"]["engine"], images, card)
-    # the same batch with every convolution on cuDNN in bf16, the route before
-    # the trunk was made position independent (resnet.conv2d)
-    port_conv = resnet.conv2d
-    resnet.conv2d = resnet.conv2d_native
-    try:
-        native = stage_split("rn50:bf16 cuDNN bf16 convolutions throughout (before)",
-                             out["bf16"]["engine"], images, card)
-    finally:
-        resnet.conv2d = port_conv
+    # the same batch on the routes before conv_bf16: cuDNN bf16 throughout, and
+    # the 7x7-grid 3x3 convolutions in fp32 (the route of the previous repair)
+    before = {}
+    for route, fn in conv_routes().items():
+        if route != "conv_bf16":
+            with conv_route(fn):
+                before[route] = stage_split(f"rn50:bf16 {route} (before)",
+                                            out["bf16"]["engine"], images, card)
     trunk = STAGES[2]
-    log(f"[rn50:bf16] trunk (stem + trunk stage) {stages[trunk]:.3f} ms with the "
-        f"position-independent convolutions, {native[trunk]:.3f} ms with cuDNN bf16 throughout: "
-        f"{stages[trunk] / native[trunk]:.3f}x; the batch {sum(stages.values()):.3f} ms against "
-        f"{sum(native.values()):.3f} ms on {card}")
+    log(f"[rn50:bf16] trunk (stem + trunk stage) {stages[trunk]:.3f} ms on conv_bf16, "
+        + ", ".join(f"{stages[trunk] / b[trunk]:.3f}x of {b[trunk]:.3f} ms on {r}"
+                    for r, b in before.items())
+        + f"; the batch {sum(stages.values()):.3f} ms against "
+        + ", ".join(f"{sum(b.values()):.3f} ms" for b in before.values()) + f" on {card}")
     keep = dict(engine=out["bf16"]["engine"], engine_fp32=out["fp32"]["engine"], params=params,
                 clip_cfg=cfg, bank=out["bf16"]["bank"], freq=freq)
     return ({k: out["bf16"]["bank_counts"][k] + out["bf16"]["counts"][k]
-             for k in out["bf16"]["counts"]}, out["bf16"]["bank_counts"], stages, keep)
+             for k in out["bf16"]["counts"]}, out["bf16"]["bank_counts"], stages, keep,
+            dict(conv, counts=out["bf16"]["counts"], trunk_ms=stages[trunk],
+                 trunk_before_ms={r: b[trunk] for r, b in before.items()}))
 
 
 def phase_unfused_paths(card, inputs):
@@ -1313,8 +1489,10 @@ SASS_KERNELS = {
     "attn_block_int8": (("IGMMA", "HGMMA", "UTMALDG"), ("IMMA",)),
     "mlp_int8": (("IGMMA", "UTMALDG"), ("IMMA",)),  # every product on the int8 wgmma GEMM
     "flash_attention": (("HMMA",), ()),             # bf16 flash on the tensor cores (mma.sync)
+    # wgmma on stages gathered by cp.async (LDGSTS), the weights by TMA
+    "conv_bf16": (("HGMMA", "UTMALDG", "LDGSTS"), ()),
 }
-SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "UTMASTG", "CALL")
+SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "UTMASTG", "LDGSTS", "CALL")
 # (library, kernel): the most subroutine calls the kernel's SASS may hold.
 # ln_quant_rows divides only per row: the LN's two means, the row's scale
 # and its correctly rounded reciprocal, each with a slow path ptxas may
@@ -1792,7 +1970,7 @@ def dump_path(tag, engine, paths, card):
                 fused = out
     for c in counts:
         expect_launches(f"[dump:{tag}] run_full_inference(save_dir)", c, PATHS_OF[tag],
-                        12 * n_batches)
+                        12 * n_batches, rn_forwards=None if rn_bf16(engine) else 0)
     with open(os.path.join(dumps[-1], "data.pkl"), "rb") as f:
         data = pickle.load(f)
     with open(os.path.join(dumps[-1], "sim_matrix.pkl"), "rb") as f:
@@ -1945,9 +2123,8 @@ SAME_BATCH_SAMPLE = 4     # dispatched batches recomputed a load (the same-batch
 # 8, each within 1e-4 of max(1, max|ref|). The service pads every batch to 8,
 # so its batches have the reference's shapes, and an image's scores do not
 # depend on its place in a batch: on ViT int8 by the kernels' design, on
-# RN50 bf16 since models/resnet.conv2d runs the 7x7-grid convolutions in
-# fp32 (rn_witness_stages requires it). Another batch size may still take
-# other cuDNN kernels (rn_batch_witness: padded 5 against 5 alone)
+# RN50 bf16 since every convolution runs conv_bf16, which also makes them
+# independent of the batch's size (rn_witness_stages requires both)
 CROSS_BATCH = {"vit": ("max|d| / max(1, max|ref|) <=", 1e-4),
                "rn": ("max|d| / max(1, max|ref|) <=", 1e-4)}
 
@@ -2128,8 +2305,9 @@ def service(tag, keep, blobs, tmp, card):
                  corr=float(np.corrcoef(answers.ravel(), refs.ravel())[0, 1]))
     rule, bound = CROSS_BATCH[tag]
     ok &= cross["err"] <= bound * scale
-    expect_launches(f"[serve:{tag}] load", load["counts"], PATHS_OF[tag],
-                    12 * int(d["leclip_dispatches_total"]))
+    dispatches = int(d["leclip_dispatches_total"])
+    expect_launches(f"[serve:{tag}] load", load["counts"], PATHS_OF[tag], 12 * dispatches,
+                    rn_forwards=dispatches if rn_bf16(keep["engine"]) else 0)
     pad = d["leclip_dispatch_padding_total"] / (d["leclip_dispatch_images_total"]
                                                 + d["leclip_dispatch_padding_total"])
     lat = np.sort(load["latency"])
@@ -2178,9 +2356,11 @@ def rn_batch_witness(engines, images, card):
     (position), against another batch of 8 that shares four of its images
     at other positions (company), and five images padded to 8 by repeating
     the last, as the service pads, against the same five unpadded (batch
-    size); on the bf16 engine (cuDNN bf16 convolutions) and the fp32 one.
-    Reported, not required."""
+    size); on the bf16 engine (every convolution on conv_bf16) and the fp32
+    one (cuDNN fp32). The bf16 engine must read 0 in all four; the fp32
+    engine's are reported."""
     a = images[:SERVICE_BATCH]
+    out = {}
     for prec, eng in engines.items():
         base = eng.run_batch_fused(a)
         again = eng.run_batch_fused(a)
@@ -2189,39 +2369,52 @@ def rn_batch_witness(engines, images, card):
         padded = eng.run_batch_fused(a[:5] + [a[4]] * 3)[:5]
         alone = eng.run_batch_fused(a[:5])
         ulp = BF16_UNIT * max(1.0, float(np.abs(base).max()))
-        d = {"again": np.abs(again - base).max(), "reversed": np.abs(rev - base).max(),
-             "other batch": np.abs(other[:4] - base[4:]).max(),
-             "padded 5 vs 5 alone": np.abs(padded - alone).max()}
+        d = out[prec] = {"again": float(np.abs(again - base).max()),
+                         "reversed": float(np.abs(rev - base).max()),
+                         "other batch": float(np.abs(other[:4] - base[4:]).max()),
+                         "padded 5 vs 5 alone": float(np.abs(padded - alone).max())}
         log(f"[serve:rn] batch witness, RN50 {prec} engine (compute {eng.compute_dtype}), max|d| "
             f"of the same images' scores: " + ", ".join(f"{k} {v:.4g} ({v / ulp:.3g} bf16 ulps)"
                                                         for k, v in d.items())
             + f" (a bf16 ulp of max(1, max|x|): {ulp:.4g}) on {card}")
+    if any(out["bf16"].values()):
+        raise AssertionError(f"RN50 bf16 scores depend on the batch: {out['bf16']}")
+    return out
 
 
-# the batch sizes the RN50 position witnesses run at, in images: the service's
-# batch (2,440 crops) and the main scoring path's (N_IMAGES, 610 crops); cuDNN
-# picks its kernels by the batch's shape, so each is witnessed on its own
-WITNESS_BATCHES = (SERVICE_BATCH, N_IMAGES)
+# the batches each RN50 witness holds against the same images in one batch of
+# SERVICE_BATCH as given, by image index: the batch-size axis (the first n
+# images alone, the first five padded to eight by repeating the fifth, as the
+# service pads) and the order axis (the batch reversed)
+WITNESS_VARIANTS = {"1 alone": [0], "2 alone": [0, 1], "5 alone": [0, 1, 2, 3, 4],
+                    "5 padded to 8": [0, 1, 2, 3, 4, 4, 4, 4],
+                    "reversed": list(range(SERVICE_BATCH - 1, -1, -1))}
 
-# the settings tried against the RN50 batch movement: (module, flag, value)
-WITNESS_SETTINGS = {
-    "defaults": [],
-    "matmul bf16 reduced-precision reduction off": [
-        (torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction", False)],
-    "cudnn deterministic": [(torch.backends.cudnn, "deterministic", True)],
-}
+
+def witness_report(tag, out, card):
+    """Log {route: {item: {variant: max|d|}}} one route a line; returns
+    {route: {item: {variant: d}}} of the items that moved."""
+    moved = {}
+    for route, items in out.items():
+        moved[route] = {k: {v: d for v, d in ds.items() if d != 0} for k, ds in items.items()}
+        moved[route] = {k: v for k, v in moved[route].items() if v}
+        worst = {v: max(ds[v] for ds in items.values()) for v in WITNESS_VARIANTS}
+        log(f"[serve:rn] {tag}, route {route}: max|d| by batch " + ", ".join(
+            f"{v} {d:.4g}" for v, d in worst.items()) + "; moved: "
+            + ("; ".join(f"{k} ({', '.join(f'{v} {d:.3g}' for v, d in ds.items())})"
+                         for k, ds in moved[route].items()) or "none") + f" on {card}")
+    return moved
 
 
 def rn_witness_stages(engine, images, card):
-    """The RN50 batch witness split by stage: a batch of images scored as
-    given and reversed, each stage of the engine's own pass (crops after
-    resize + normalise, the trunk map, the pool's global feature, the dense
-    projection, the fused scores) compared image for image, at each size of
-    WITNESS_BATCHES under the defaults, and at the first size under each
-    other setting of WITNESS_SETTINGS. Under the defaults every stage must
-    read max|d| = 0 at every size (the JAX trunk gives each image the same
-    values whatever the batch); the other settings are reported. Returns
-    {(images, setting): {stage: max|d|}}."""
+    """The RN50 batch witness split by stage: each stage of the engine's own
+    pass (crops after resize + normalise, the trunk map, the pool's global
+    feature, the dense projection, the fused scores) for each batch of
+    WITNESS_VARIANTS, image for image against the same images in the batch
+    of SERVICE_BATCH, under each route of conv_routes(). On the port's route
+    (conv_bf16) every stage must read max|d| = 0 in every batch (the JAX
+    trunk gives each image the same values whatever the batch); the other
+    routes are reported. Returns {route: {stage: {variant: max|d|}}}."""
     stem, head = tower_parts(engine)
 
     def stages(batch):
@@ -2239,77 +2432,73 @@ def rn_witness_stages(engine, images, card):
                 "pool (global)": per_image(feats.global_feat),
                 "dense projection": per_image(feats.spatial_feats), "scores": fused.float()}
 
+    a = images[:SERVICE_BATCH]
     out = {}
-    for n in WITNESS_BATCHES:
-        a = images[:n]
-        for name, flags in WITNESS_SETTINGS.items():
-            if flags and n != WITNESS_BATCHES[0]:
-                continue
-            saved = [(mod, flag, getattr(mod, flag)) for mod, flag, _ in flags]
-            try:
-                for mod, flag, value in flags:
-                    setattr(mod, flag, value)
-                given, rev = stages(a), stages(a[::-1])
-            finally:
-                for mod, flag, value in saved:
-                    setattr(mod, flag, value)
-            d = {k: (given[k] - rev[k].flip(0)).abs().max().item() for k in given}
-            out[(n, name)] = d
-            ulp = BF16_UNIT * max(1.0, given["scores"].abs().max().item())
-            log(f"[serve:rn] batch witness by stage, RN50 "
-                f"{str(engine.compute_dtype).split('.')[-1]} engine, batch of {n} images "
-                f"({given['trunk'].shape[0] * given['trunk'].shape[1]} crops) as given against "
-                f"reversed, {name}: max|d| " + ", ".join(f"{k} {v:.4g}" for k, v in d.items())
-                + f" (scores: {d['scores'] / ulp:.3g} bf16 ulps of max(1, max|x|)) on {card}")
-    moved = {n: {k: v for k, v in out[(n, "defaults")].items() if v != 0}
-             for n in WITNESS_BATCHES}
-    if any(moved.values()):
-        raise AssertionError(f"RN50 bf16 scores depend on the batch order: {moved}")
+    for route, fn in conv_routes().items():
+        with conv_route(fn):
+            base = stages(a)
+            res = {k: {} for k in base}
+            for variant, idx in WITNESS_VARIANTS.items():
+                got = stages([a[i] for i in idx])
+                for k in base:
+                    res[k][variant] = (got[k] - base[k][idx]).abs().max().item()
+                del got
+        out[route] = res
+        del base
+    dtype = str(engine.compute_dtype).split(".")[-1]
+    moved = witness_report(f"batch witness by stage, RN50 {dtype} engine, {SERVICE_BATCH} images "
+                           f"({SERVICE_BATCH * 305} crops)", out, card)
+    if moved["conv_bf16"]:
+        raise AssertionError(f"RN50 bf16 stages depend on the batch: {moved['conv_bf16']}")
     return out
 
 
-def rn_witness_layers(engine, images, card):
-    """Each convolution of the RN50 trunk by itself, on its own input in the
-    engine's pass over a batch of images (305 crops each), run on the batch
-    as given and reversed, at each size of WITNESS_BATCHES: max|d| of its
-    output, by the port's conv2d and by cuDNN in bf16 for every shape
-    (conv2d_native, the route before the repair). The port's must read 0 at
-    every layer and every size. Returns {images: [(layer, port max|d|,
-    native max|d|)]}."""
+def rn_witness_layers(vis, flat, card):
+    """Each convolution of the RN50 bf16 trunk by itself, on its own input in
+    the trunk's pass over ``flat`` (SERVICE_BATCH images of 305 crops each),
+    run for each batch of WITNESS_VARIANTS and compared image for image with
+    the same images in the full batch, by each route of conv_routes(). The
+    kernel's route must read 0 at every convolution and in every batch; the
+    others are reported (which convolutions move, and in which batches).
+    Returns {route: {layer: {variant: max|d|}}}."""
     from leclip_tpu_torch.models import resnet
 
-    out, port_conv = {}, resnet.conv2d
-    for n in WITNESS_BATCHES:
-        rows = out[n] = []
-        with torch.inference_mode():
-            crops = engine._crops(engine.stage_batch_fused(images[:n]))
-            flat = crops.reshape((-1,) + crops.shape[2:])
+    routes = conv_routes()
+    out = {r: {} for r in routes}
+    n = SERVICE_BATCH
 
-            def rev(t):
-                return t.reshape((n, -1) + tuple(t.shape[1:])).flip(0).reshape(t.shape)
+    def recording(x, k, stride=1):
+        kh = k.shape[-1]
+        name = f"{len(out['conv_bf16']):02d} {kh}x{kh}/{stride} {x.shape[1]}x{x.shape[2]}x" \
+               f"{x.shape[3]}->{k.shape[0]}"
+        per_img = x.reshape((n, -1) + tuple(x.shape[1:]))
+        for route, fn in routes.items():
+            base = fn(x, k, stride)
+            base = base.reshape((n, -1) + tuple(base.shape[1:]))
+            res = out[route][name] = {}
+            for variant, idx in WITNESS_VARIANTS.items():
+                got = fn(per_img[idx].flatten(0, 1), k, stride)
+                res[variant] = (got.reshape((len(idx), -1) + tuple(got.shape[1:])).float()
+                                - base[idx].float()).abs().max().item()
+                del got
+            del base
+        return routes["conv_bf16"](x, k, stride)
 
-            def recording(x, k, stride=1):
-                d = [(fn(x, k, stride).float() - rev(fn(rev(x), k, stride)).float()).abs()
-                     .max().item() for fn in (port_conv, resnet.conv2d_native)]
-                kh, kw = k.shape[-2:]
-                rows.append((f"{kh}x{kw}/{stride} {x.shape[1]}x{x.shape[2]}x{x.shape[3]}->"
-                             f"{k.shape[0]}", *d))
-                return port_conv(x, k, stride)
-
-            resnet.conv2d = recording
-            try:
-                resnet.resnet_features(flat, engine.clip_params["visual"])
-            finally:
-                resnet.conv2d = port_conv
-        log(f"[serve:rn] batch witness by layer, RN50 bf16 trunk, {len(rows)} convolutions on "
-            f"{flat.shape[0]} crops of {n} images as given against reversed, max|d| port / "
-            f"cuDNN bf16 (before the repair): " + "; ".join(f"{name} {p:.4g} / {nat:.4g}"
-                                                           for name, p, nat in rows)
-            + f" on {card}")
-    moved = {n: [r for r in rows if r[1] != 0] for n, rows in out.items()}
-    if any(moved.values()):
-        raise AssertionError(f"RN50 bf16 convolutions depend on the batch order: {moved}")
+    with conv_route(recording), torch.inference_mode():
+        resnet.resnet_features(flat, vis)
+    moved = witness_report(f"batch witness by layer, RN50 bf16 trunk, {len(out['conv_bf16'])} "
+                           f"convolutions on {flat.shape[0]} crops of {n} images", out, card)
+    if moved["conv_bf16"]:
+        raise AssertionError(f"RN50 bf16 convolutions depend on the batch: {moved['conv_bf16']}")
     return out
+
+
+def rn_witness_layers_engine(engine, images, card):
+    """:func:`rn_witness_layers` on the engine's own crops of
+    SERVICE_BATCH images."""
+    with torch.inference_mode():
+        crops = engine._crops(engine.stage_batch_fused(images[:SERVICE_BATCH]))
+    return rn_witness_layers(engine.clip_params["visual"], crops.flatten(0, 1), card)
 
 
 def decoder_probe():
@@ -2372,8 +2561,8 @@ def phase_dump_bank_service(card, inputs, vit, rn):
              res["serve:rn"]["images"], card)
         part("witness-stages:rn", rn_witness_stages, rn["engine"], res["serve:rn"]["images"],
              card)
-        part("witness-layers:rn", rn_witness_layers, rn["engine"], res["serve:rn"]["images"],
-             card)
+        part("witness-layers:rn", rn_witness_layers_engine, rn["engine"],
+             res["serve:rn"]["images"], card)
         decoder_probe()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3785,7 +3974,7 @@ def main() -> int:
     total, bank_counts, score_counts, _, vit = phase_main_paths(card, inputs)
     total_attn, fp32_bank_counts, counts_a, counts_b = phase_unfused_paths(card, inputs)
     torch.cuda.empty_cache()
-    total_rn, rn_bank_counts, _, rn = phase_rn50(card, inputs)
+    total_rn, rn_bank_counts, _, rn, rn_conv = phase_rn50(card, inputs)
     for k, n in total_rn.items():
         total[k] = total.get(k, 0) + n
     # phase 7 runs on phases 3 and 5's engines, which are freed before phase 6
@@ -3863,6 +4052,20 @@ def main() -> int:
                                  "recomputes packed_attention_reference"}
                if k == "resident_attention" else {}),
         })
+    t = rn_conv["totals"]
+    line["kernels"].append({
+        "name": "conv_bf16", "route": "cuda", "source": "leclip_tpu_torch/csrc/conv_bf16.cu",
+        "replaces": "XLA conv (leclip_tpu/models/resnet.py:30), no Pallas kernel",
+        "launches": total["conv_bf16"], "max_abs_err": t["max_abs_err"],
+        **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": f"RN50 trunk: its {RN50_CONVS} convolutions, summed, at {N_IMAGES * 305} "
+                 "crops of 224x224 (the engine's own crops)",
+        "library": "cuDNN bf16 (F.conv2d in bf16, resnet.conv2d_native)",
+        "exact_share": t["exact"],
+        "trunk_ms": rn_conv["trunk_ms"], "trunk_before_ms": rn_conv["trunk_before_ms"],
+        "path": "RN50 TEST.PREC auto (bf16): the image tower, every convolution",
+        "launches_scoring": rn_conv["counts"]["conv_bf16"], "launches_phase7": total7["conv_bf16"],
+    })
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -355,6 +355,15 @@ class CaptionDistillTrainer:
                                    torch.as_tensor(captions, device=self.device), self.flags,
                                    q8=kw["caption_q8"], fused=kw["caption_fused"])
 
+    def set_cooccurrence(self, co_matrix: np.ndarray) -> None:
+        """Install a [C, C] co-occurrence matrix for the
+        ranking_with_cooccurrence loss and rebuild the step, every other
+        argument of the step kept."""
+        self._step_kwargs["co_matrix"] = torch.as_tensor(np.asarray(co_matrix),
+                                                         dtype=torch.float32, device=self.device)
+        self.train_step = make_train_step(self.clip_params, self.clip_cfg, self.constants,
+                                          self.optimizer, self.flags, **self._step_kwargs)
+
     def _load_cooccurrence(self) -> np.ndarray:
         """Row-normalised P(j|i) for the ranking_with_cooccurrence loss: a
         `freq_stats.pkl` next to the caption corpora if there is one, else

@@ -51,6 +51,7 @@ from ..device import cast_floating, resolve_device, tree_map
 from ..models.clip import CLIPConfig
 from ..models.dense_clip import (
     DenseFlags,
+    ImageFeatures,
     encode_image_features,
     prompt_text_features,
     retrieval_augment,
@@ -369,16 +370,26 @@ class TTAEngine:
         """Per member group: (names, global and local logits [m, b, n, C] in
         fp32), the local ones co-occurrence-adjusted where the group uses
         frequencies. fp32 before any fusion, so fuse6's variances of bf16
-        logits are not rounded to bf16 and both paths fuse the same values."""
+        logits are not rounded to bf16 and both paths fuse the same values.
+        Each image's n crops are scored by themselves, so that every fp32
+        product has the same shape whatever the batch: cuBLAS picks its
+        kernel (split-K among them) by shape, and a local-logits product of
+        one image's rows summed in another order than in a batch of two or
+        more, moving the image's scores by an fp32 ulp."""
         for names, flags, g_use_freq, tr, tf in self._model_groups():
-            out = test_logits_from_features(tr, tf, feats, flags,
-                                            precomputed_retrieval=(aug, scores))
             m = len(names)
-            g = out.logits_global.reshape(m, b, n, -1).float()
-            loc = out.logits_local.reshape(m, b, n, -1).float()
-            if g_use_freq:
-                loc = adjust_predictions(loc, self.cooccurrence)
-            yield names, g, loc
+            gs, locs = [], []
+            for i in range(b):
+                rows = slice(i * n, (i + 1) * n)
+                one = ImageFeatures(feats.global_feat[rows], feats.spatial_feats[rows])
+                out = test_logits_from_features(tr, tf, one, flags,
+                                                precomputed_retrieval=(aug[rows], scores[rows]))
+                loc = out.logits_local.reshape(m, 1, n, -1).float()
+                if g_use_freq:
+                    loc = adjust_predictions(loc, self.cooccurrence)
+                gs.append(out.logits_global.reshape(m, 1, n, -1).float())
+                locs.append(loc)
+            yield names, torch.cat(gs, 1), torch.cat(locs, 1)
 
     def _score(self, feats, aug, scores, b: int, n: int) -> torch.Tensor:
         """Every member's global/local logits, fuse/fuse6 block fusion and

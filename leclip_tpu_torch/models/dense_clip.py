@@ -282,3 +282,14 @@ def dense_test_forward(clip_params: dict, clip_cfg: CLIPConfig, trainable: dict,
     image_feats = encode_image_features(clip_params, clip_cfg, images, flags)
     return test_logits_from_features(trainable, text_feats, image_feats, flags,
                                      caption_bank=caption_bank, topk=topk)
+
+
+def custom_clip_test_forward(clip_params: dict, clip_cfg: CLIPConfig, trainable: dict,
+                             text_feats: Dict[str, torch.Tensor], images: torch.Tensor,
+                             flags: DenseFlags) -> Tuple[torch.Tensor, None]:
+    """Global-only test forward (ref CustomCLIP :338-352): the normalised
+    image embedding (the pool with its positional embedding) against the
+    positive prompt features → (logits [B, C], None)."""
+    img = _normalize(clip_encode_image(clip_params, clip_cfg, images,
+                                       impl=flags.attention_impl))
+    return _scaled_product(FIXED_LOGIT_SCALE, img, text_feats["pos"]), None

@@ -91,6 +91,35 @@ def build_prompt_learner(generator: torch.Generator, clip_params: dict,
     return trainable, constants
 
 
+def sparse_token_embedding_stub(token_embedding, classnames: List[str], n_ctx: int = 16,
+                                ctx_init: str = "") -> torch.Tensor:
+    """A host copy of the token-embedding table [V, D] holding only the rows
+    that :func:`build_prompt_learner` indexes for these class names (about a
+    hundred of 49,408); every other row is zero. The rows are gathered where
+    the table lives and only they are copied to the host. The stub in
+    ``clip_params["text"]["token_embedding"]`` gives the same prompt learner
+    (same ``n_ctx`` / ``ctx_init``) as the full table. ``token_embedding``:
+    a tensor on any device, or a numpy array."""
+    if ctx_init:
+        prefix = ctx_init.replace("_", " ")
+        probe_rows = [tokenize(prefix)[0]]  # the ctx slice's ids
+    else:
+        prefix = " ".join(["X"] * n_ctx)
+        probe_rows = []
+    names = [c.replace("_", " ") for c in classnames]
+    probe = tokenize([f"{prefix} {c}." for c in names] + [f"{prefix}."], truncate=True)
+    ids = np.unique(np.concatenate([np.asarray(probe).ravel()]
+                                   + [np.asarray(r) for r in probe_rows]))
+    if isinstance(token_embedding, np.ndarray):
+        rows = torch.from_numpy(np.ascontiguousarray(token_embedding[ids]))
+    else:
+        rows = token_embedding[torch.as_tensor(ids, dtype=torch.long,
+                                               device=token_embedding.device)].cpu()
+    stub = torch.zeros(tuple(token_embedding.shape), dtype=rows.dtype)
+    stub[torch.as_tensor(ids, dtype=torch.long)] = rows
+    return stub
+
+
 def assemble_prompts(trainable: dict, constants: dict, neg_prompt_wcls: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """[prefix | ctx | suffix] per class for the three prompt sets → three

@@ -22,11 +22,12 @@ running statistics and cast to the activations' dtype, not folded into the
 conv weights; the pool's logits and softmax are fp32, and its probabilities
 are cast to v's dtype before the second product. An fp32 tower runs its
 convolutions and products in full fp32 (TF32 off inside the call, see
-device.no_tf32). The tower holds no hand-written kernel: the convolutions
-are cuDNN's, as the JAX package leaves them to XLA, and the 50-token pool is
-plain PyTorch, as in JAX. A bf16 tower's 3x3 convolutions on the last
-stage's grid run in fp32 and round once, so that an image's features do not
-depend on its place in the batch (:func:`conv2d`)."""
+device.no_tf32). A bf16 tower runs every convolution through the hand-written
+kernel of ops/conv_kernels.py (on the CPU, its plain version), which sums
+each output element in one order fixed by K, so that an image's features
+do not depend on the batch it is scored in (:func:`conv2d`); an fp32 tower's
+convolutions are cuDNN's, as the JAX package leaves them to XLA. The
+50-token pool is plain PyTorch, as in JAX."""
 
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ import torch.nn.functional as F
 from ..device import no_tf32 as _no_tf32
 from ..device import tree_map
 from ..ops.attention import _matmul, _mm32, attention_core
+from ..ops.conv_kernels import conv_bf16, conv_library
 from ..ops.resize_matmul import cubic_kernel
 
 _BN_EPS = 1e-5
@@ -66,56 +68,29 @@ def to_hwio(w: torch.Tensor) -> torch.Tensor:
     return w.permute(*range(n), n + 2, n + 3, n + 1, n).contiguous()
 
 
-def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
-    """(before, after) padding of ``lax.conv_general_dilated(padding="SAME")``:
-    the output keeps ceil(size / stride) positions and an odd total pads one
-    more after."""
-    total = max((-(-size // stride) - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
-# bf16 k x k convolutions (k > 1) over grids of at most this many positions
-# run in fp32 (see conv2d): cuDNN's bf16 kernels for them give an image
-# other values at another place in the batch
-EXACT_GRID = 7 * 7
-
-
 def conv2d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """x [B, H, W, Cin] → [B, H', W', Cout], padded "SAME" as the JAX conv
-    pads (asymmetric pads, such as the stem's (0, 1), by an explicit pad);
-    ``kernel`` [Cout, Cin, kh, kw], cast to x's dtype.
+    pads (asymmetric pads, such as the stem's (0, 1), included); ``kernel``
+    [Cout, Cin, kh, kw], cast to x's dtype.
 
-    An image's output does not depend on its place in the batch, as the
-    JAX function's does not (a batch of another size may still take other
-    cuDNN kernels). On the H100, cuDNN's bf16 kernel for the 3x3
-    convolutions of the last stage (7x7 grid, 512 channels, RN50 at 224²)
-    sums an image's products differently at another place in the batch;
-    its kernels for every other convolution of the tower do not. So a bf16
-    k x k convolution over at most ``EXACT_GRID`` positions runs in fp32 on
-    the exactly widened bf16 values, TF32 off, and is rounded to bf16 once
-    after the sum: JAX's single rounding point, as the fp32 tower (which is
-    position independent) computes it. chip_smoke.py holds every
-    convolution of the trunk to it on the card, at batches of 2,440 and
-    610 crops (8 and 2 images of 305)."""
-    if (x.dtype == torch.bfloat16 and kernel.shape[-1] > 1
-            and x.shape[1] * x.shape[2] <= EXACT_GRID):
-        with _no_tf32():
-            return conv2d_native(x.float(), kernel.float(), stride).to(x.dtype)
+    An image's output does not depend on the batch it is computed in, as
+    the JAX function's does not. A bf16 convolution runs
+    :func:`~leclip_tpu_torch.ops.conv_kernels.conv_bf16` at every shape: on
+    the card the kernel, which sums each output element over K = (kh, kw,
+    cin) in that order and rounds once to bf16 (JAX's single rounding
+    point); on the CPU its plain version, the fp32 sum of the widened values
+    rounded once. cuDNN's bf16 kernels, chosen by shape, give an image other
+    values in a batch of another size or order. An fp32 convolution is
+    cuDNN's (:func:`conv2d_native`), in full fp32 inside the tower's
+    ``no_tf32``."""
+    if x.dtype == torch.bfloat16:
+        return conv_bf16(x, kernel, stride)
     return conv2d_native(x, kernel, stride)
 
 
-def conv2d_native(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """:func:`conv2d` by cuDNN in x's dtype for every shape."""
-    kh, kw = kernel.shape[-2:]
-    (top, bottom), (left, right) = (_same_pads(x.shape[1], kh, stride),
-                                    _same_pads(x.shape[2], kw, stride))
-    xc = x.permute(0, 3, 1, 2)
-    w = kernel.to(x.dtype)
-    if top == bottom and left == right:
-        y = F.conv2d(xc, w, stride=stride, padding=(top, left))
-    else:
-        y = F.conv2d(F.pad(xc, (left, right, top, bottom)), w, stride=stride)
-    return y.permute(0, 2, 3, 1)
+# conv2d by cuDNN in x's dtype for every shape: the fp32 route, and
+# chip_smoke.py's comparator for the bf16 one
+conv2d_native = conv_library
 
 
 def batch_norm(x: torch.Tensor, p: dict) -> torch.Tensor:

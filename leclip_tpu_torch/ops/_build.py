@@ -61,6 +61,9 @@ KERNELS: Dict[str, tuple] = {
         "leclip_flash_attention": [_P] * 6 + [_I] * 6 + [_L] * 9 + [_I, _P],
         "leclip_flash_scratch_bytes": [_I, _I],
     }),
+    "conv_bf16": ("conv_bf16.cu", {
+        "leclip_conv_bf16": [_P] * 3 + [_I] * 12 + [_P],
+    }),
 }
 
 _lock = threading.Lock()

@@ -3,8 +3,9 @@
 * torch versions of the on-device fusion math used by the fused TTA path:
   ``adjust_predictions``, ``aggregate_blocks``, ``fuse``, ``fuse6``;
 * numpy copies of the host-side pieces: ``normalized_cooccurrence``,
-  ``routing_vector``, ``DEFAULT_ROUTING`` and ``generate_final_answers``
-  (with its ``fuse``/``fuse6``/``model_result``/``route_ensemble`` helpers).
+  ``routing_vector``, ``DEFAULT_ROUTING``, ``learn_routing`` and
+  ``generate_final_answers`` (with its ``fuse``/``fuse6``/``model_result``/
+  ``route_ensemble`` helpers).
 """
 
 from __future__ import annotations
@@ -93,6 +94,42 @@ def routing_vector(model_names: Sequence[str], routing: Dict[str, List[int]] = D
             valid = [c for c in cols if c < n_cls]
             r[valid] = names.index(name)
     return r
+
+
+def learn_routing(per_model_val: Dict[str, np.ndarray], labels: np.ndarray, base: str = "best",
+                  margin: float = 0.0, min_pos: int = 1,
+                  confirm_splits: int = 1) -> Dict[str, List[int]]:
+    """A per-class routing table fitted on validation scores: class ``c``
+    goes to member ``m`` when m has the highest validation AP on c among the
+    non-base members and beats the base's by more than ``margin``. A class
+    with fewer than ``min_pos`` validation positives stays on the base, and
+    ``confirm_splits=k`` also requires the specialist to beat the base on
+    each of k interleaved validation folds. Returns ``{member: [class
+    columns]}`` for :func:`route_ensemble` / :func:`routing_vector`, base
+    and empty members omitted."""
+    from ..engine.evaluator import average_precision
+
+    names = [n for n in per_model_val if n != base]
+    if base not in per_model_val:
+        raise ValueError(f"base member {base!r} missing from per_model_val")
+    if not names:  # one member: nothing to route
+        return {}
+    labels = np.asarray(labels)
+    n_val, n_cls = labels.shape
+    folds = [slice(None)]
+    if confirm_splits > 1:
+        folds += [np.arange(f, n_val, confirm_splits) for f in range(confirm_splits)]
+    ap = {name: np.array([[average_precision(scores[fold, c], labels[fold, c])
+                           for c in range(n_cls)] for fold in folds])  # [1 + splits, n_cls]
+          for name, scores in per_model_val.items()}
+    routing: Dict[str, List[int]] = {n: [] for n in names}
+    for c in range(n_cls):
+        if labels[:, c].sum() < max(min_pos, 1):
+            continue  # too few positives: the AP is noise, keep the base
+        cand = max(names, key=lambda n: ap[n][0, c])
+        if ap[cand][0, c] > ap[base][0, c] + margin and (ap[cand][1:, c] > ap[base][1:, c]).all():
+            routing[cand].append(c)
+    return {n: cols for n, cols in routing.items() if cols}
 
 
 def _np_fuse(data, sims_blocks, threshold=0.2, twice=False):

@@ -684,21 +684,28 @@ def test_optimizer_step_on_card_matches_cpu(card, name):
         assert (a.cpu().double() - r.double()).abs().max().item() <= tol
 
 
+def _rn50_bf16(card, seed):
+    from leclip_tpu_torch.device import cast_floating, tree_map
+    from leclip_tpu_torch.models.clip import PRESETS
+    from leclip_tpu_torch.models.resnet import init_resnet_params
+
+    cfg = PRESETS["RN50"]
+    g = torch.Generator().manual_seed(seed)
+    vis = _random_bn(init_resnet_params(g, cfg.vision_layers, cfg.embed_dim,
+                                        cfg.image_resolution, cfg.vision_width, device="cpu"), g)
+    return tree_map(lambda t: t.to(card), cast_floating(vis, torch.bfloat16))
+
+
 def test_rn50_bf16_trunk_ignores_the_batch_order_on_card(card):
     """RN50's bf16 trunk on one batch of 8 images x 305 crops (the witness's
     shape, where cuDNN's bf16 kernels for the 7x7-grid 3x3 convolutions sum
     an image's products differently at another place in the batch), as
     given and with the images reversed: each image's trunk map bit for bit
-    the same (models/resnet.py conv2d runs those convolutions in fp32)."""
-    from leclip_tpu_torch.device import cast_floating, tree_map
-    from leclip_tpu_torch.models.clip import PRESETS
-    from leclip_tpu_torch.models.resnet import init_resnet_params, resnet_features
+    the same (models/resnet.py conv2d runs every bf16 convolution on
+    conv_bf16)."""
+    from leclip_tpu_torch.models.resnet import resnet_features
 
-    cfg = PRESETS["RN50"]
-    g = torch.Generator().manual_seed(3)
-    vis = _random_bn(init_resnet_params(g, cfg.vision_layers, cfg.embed_dim,
-                                        cfg.image_resolution, cfg.vision_width, device="cpu"), g)
-    vis = tree_map(lambda t: t.to(card), cast_floating(vis, torch.bfloat16))
+    vis = _rn50_bf16(card, 3)
     x = torch.rand(8, 305, 224, 224, 3, generator=torch.Generator(device=card).manual_seed(4),
                    device=card).to(torch.bfloat16)
     with torch.inference_mode():
@@ -707,6 +714,131 @@ def test_rn50_bf16_trunk_ignores_the_batch_order_on_card(card):
     rev = rev.reshape((8, 305) + tuple(rev.shape[1:])).flip(0).flatten(0, 1)
     assert torch.isfinite(given.float()).all()
     assert torch.equal(given, rev), (given.float() - rev.float()).abs().max().item()
+
+
+def test_rn50_bf16_trunk_ignores_the_batch_size_on_card(card):
+    """RN50's bf16 trunk over images of 305 crops each: every image's map in
+    a batch of 1, 2 and 5 images, and of 5 padded to 8 by repeating the
+    fifth (as the scoring service pads), bit for bit its map in the batch of
+    8. cuDNN's bf16 kernels fail this (the stem's stride-2 convolution at 1,
+    2 and 5 images, the 7x7-grid 3x3 ones at 5); conv_bf16 sums each output
+    element in one order fixed by K."""
+    from leclip_tpu_torch.models.resnet import resnet_features
+    from leclip_tpu_torch.ops.conv_kernels import conv_bf16
+
+    vis = _rn50_bf16(card, 3)
+    x = torch.rand(8, 305, 224, 224, 3, generator=torch.Generator(device=card).manual_seed(5),
+                   device=card).to(torch.bfloat16)
+    before = conv_bf16.launches
+    with torch.inference_mode():
+        full = resnet_features(x.flatten(0, 1), vis)
+        full = full.reshape((8, 305) + tuple(full.shape[1:]))
+        assert conv_bf16.launches == before + 55
+        for idx in ([0], [0, 1], [0, 1, 2, 3, 4], [0, 1, 2, 3, 4, 4, 4, 4]):
+            got = resnet_features(x[idx].flatten(0, 1), vis)
+            got = got.reshape((len(idx), 305) + tuple(got.shape[1:]))
+            assert torch.equal(got, full[idx]), (idx, (got.float() - full[idx].float()).abs()
+                                                 .max().item())
+    assert torch.isfinite(full.float()).all()
+
+
+def _trunk_shapes():
+    """(H, Cin, Cout, k, stride) of every distinct convolution of the RN50
+    trunk at 224² crops."""
+    out = [(224, 3, 32, 3, 2), (112, 32, 32, 3, 1), (112, 32, 64, 3, 1)]
+    h, cin = 56, 64
+    for i, n in enumerate((3, 4, 6, 3)):
+        planes = 64 * 2 ** i
+        for b in range(n):
+            stride = 2 if b == 0 and i > 0 else 1
+            ho = h // stride
+            out += [(h, cin, planes, 1, 1), (h, planes, planes, 3, 1),
+                    (ho, planes, 4 * planes, 1, 1)]
+            if b == 0:
+                out.append((ho, cin, 4 * planes, 1, 1))
+            h, cin = ho, 4 * planes
+    return sorted(set(out))
+
+
+@pytest.mark.parametrize("h,cin,cout,k,stride", _trunk_shapes())
+def test_conv_bf16_kernel_matches_plain(card, h, cin, cout, k, stride):
+    """conv_bf16 against conv_bf16_plain at each distinct trunk shape (3
+    crops): within 1 bf16 ulp of max(|plain|, 2^-8 S), S = sum |a||w| the
+    element's own scale (both round the same exact bf16 products once, after
+    fp32 sums in another order, whose difference is a few fp32 ulps of S),
+    and exactly equal on all but a small share."""
+    from leclip_tpu_torch.device import no_tf32
+    from leclip_tpu_torch.ops.conv_kernels import conv_bf16, conv_bf16_plain, conv_library
+
+    g = torch.Generator(device=card).manual_seed(h + cin + cout)
+    x = torch.randn(3, h, h, cin, generator=g, device=card).to(torch.bfloat16)
+    w = (torch.randn(cout, k, k, cin, generator=g, device=card) * (k * k * cin) ** -0.5
+         ).to(torch.bfloat16).permute(0, 3, 1, 2)
+    before = conv_bf16.launches
+    out = conv_bf16(x, w, stride)
+    assert conv_bf16.launches == before + 1
+    ref = conv_bf16_plain(x, w, stride)
+    with no_tf32():
+        scale = conv_library(x.float().abs(), w.float().abs(), stride)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (3, -(-h // stride), -(-h // stride), cout)
+    d = (out.float() - ref.float()).abs()
+    mag = torch.maximum(ref.float().abs(), 2.0 ** -8 * scale).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert (d <= ulp).all(), (d / ulp).max().item()
+    assert (d == 0).float().mean().item() >= 0.99
+
+
+def test_conv_bf16_failures_raise(card, monkeypatch):
+    """No hidden fallback: a build that fails and a launch that returns an
+    error both raise, and nothing is counted."""
+    from leclip_tpu_torch.ops import _build
+    from leclip_tpu_torch.ops.conv_kernels import conv_bf16
+
+    x = torch.zeros(1, 8, 8, 16, dtype=torch.bfloat16, device=card)
+    w = torch.zeros(32, 16, 3, 3, dtype=torch.bfloat16, device=card)
+    before = conv_bf16.launches
+
+    def no_build(name):
+        raise RuntimeError("kernel build failed: nvcc exited 1")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    with pytest.raises(RuntimeError, match="build failed"):
+        conv_bf16(x, w)
+
+    class _Refused:
+        @staticmethod
+        def leclip_conv_bf16(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(_build, "load", lambda name: _Refused())
+    with pytest.raises(RuntimeError, match="cudaError_t 9"):
+        conv_bf16(x, w)
+    assert conv_bf16.launches == before
+
+
+def test_conv_bf16_gradient_on_card_matches_cpu(card):
+    """Under autograd the forward launches the kernel and the backward is
+    the library's convolution gradient: the input and kernel gradients of a
+    bf16 3x3 convolution on the card within 2 bf16 epsilons of max(1,
+    max|ref|) of the same function on the CPU."""
+    from leclip_tpu_torch.ops.conv_kernels import conv_bf16
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 14, 14, 64, generator=g).to(torch.bfloat16)
+    w = (torch.randn(64, 64, 3, 3, generator=g) / 24).to(torch.bfloat16)
+    cot = torch.randn(2, 14, 14, 64, generator=g).to(torch.bfloat16)
+    grads = []
+    for dev in ("cpu", card):
+        xs = x.to(dev).detach().requires_grad_()
+        ws = w.to(dev).detach().requires_grad_()
+        before = conv_bf16.launches
+        out = conv_bf16(xs, ws, 1)
+        assert conv_bf16.launches == before + (dev != "cpu")
+        out.backward(cot.to(dev))
+        grads.append((xs.grad.cpu().float(), ws.grad.cpu().float()))
+    for got, ref in zip(grads[1], grads[0]):
+        assert (got - ref).abs().max().item() <= 2 * 2.0 ** -8 * max(1.0, ref.abs().max().item())
 
 
 def test_resident_gradient_at_the_finetune_shape(card):

@@ -180,7 +180,8 @@ def test_int8_cpu_tensors_take_the_plain_path_and_count_no_launch():
     tqk.mlp_int8(tx, *_mlp_args(tl, tb))
     assert launches.launch_counts() == {"attn_block_bf16": 0, "mlp_bf16": 0, "ln_quant": 0,
                                         "attn_block_int8": 0, "mlp_int8": 0,
-                                        "resident_attention": 0, "flash_attention": 0}
+                                        "resident_attention": 0, "flash_attention": 0,
+                                        "conv_bf16": 0}
     tqk.mlp_int8.launches = 3
     launches.reset_launch_counts()
     assert tqk.mlp_int8.launches == 0
@@ -270,7 +271,7 @@ def test_build_hash_covers_every_included_header(tmp_path, monkeypatch):
     for header, users in (("layernorm.cuh", {"attn_block_bf16", "mlp_bf16", "ln_quant",
                                              "attn_block_int8", "mlp_int8"}),
                           ("gemm_sm90.cuh", {"attn_block_bf16", "mlp_bf16", "attn_block_int8",
-                                             "mlp_int8"}),
+                                             "mlp_int8", "conv_bf16"}),
                           ("gemm_int8.cuh", {"attn_block_int8", "mlp_int8"}),
                           ("flash_mma.cuh", {"flash_attention"})):
         prev = names()

@@ -95,12 +95,12 @@ def test_resnet_features_matches_jax(params):
 
 
 def test_bf16_trunk_matches_jax_and_ignores_the_batch_order(params):
-    """The bf16 trunk (RN-TEST at 64²: its layer3 and layer4 3x3
-    convolutions, on 4x4 and 2x2 grids, take the fp32 route of conv2d)
-    against JAX's bf16 trunk on the same bf16 weights: within 8 bf16
-    epsilons (2^-8) of max(1, max|ref|), since each of the ~20 layers rounds
-    its output to bf16 as JAX's does, after sums in another order. An
-    image's trunk map is the same, bit for bit, with the batch reversed."""
+    """The bf16 trunk (RN-TEST at 64², every convolution on conv_bf16's
+    plain version on the CPU) against JAX's bf16 trunk on the same bf16
+    weights: within 8 bf16 epsilons (2^-8) of max(1, max|ref|), since each
+    of the ~20 layers rounds its output to bf16 as JAX's does, after sums in
+    another order. An image's trunk map is the same, bit for bit, with the
+    batch reversed."""
     from leclip_tpu_torch.device import cast_floating
 
     x = _x((4, 64, 64, 3), 4)
@@ -116,20 +116,94 @@ def test_bf16_trunk_matches_jax_and_ignores_the_batch_order(params):
     assert torch.equal(rev, out)
 
 
-@pytest.mark.parametrize("grid,exact", [((7, 7), True), ((4, 5), True), ((8, 8), False)])
-def test_bf16_small_grid_convs_run_in_fp32(grid, exact):
-    """A bf16 k x k convolution over at most EXACT_GRID positions is the fp32
-    convolution of the widened values, rounded once to bf16; 1x1
-    convolutions and larger grids stay in bf16 (conv2d_native)."""
-    x = torch.tensor(_x((3,) + grid + (8,), 5)).to(torch.bfloat16)
-    w3 = tres.from_hwio(torch.tensor(_conv((3, 3, 8, 6), 6))).to(torch.bfloat16)
-    w1 = tres.from_hwio(torch.tensor(_conv((1, 1, 8, 6), 7))).to(torch.bfloat16)
-    widened = tres.conv2d_native(x.float(), w3.float()).to(torch.bfloat16)
-    want = widened if exact else tres.conv2d_native(x, w3)
-    assert torch.equal(tres.conv2d(x, w3), want)
-    assert torch.equal(tres.conv2d(x, w1), tres.conv2d_native(x, w1))
-    f32 = torch.tensor(_x((2, 7, 7, 8), 8))
-    assert torch.equal(tres.conv2d(f32, w3.float()), tres.conv2d_native(f32, w3.float()))
+# (label, image indices) of the batches each image is held to its map in the
+# batch of 8: the first image alone, the first five, and the first five
+# padded to eight by repeating the fifth, as the scoring service pads
+BATCHES = {"1 alone": [0], "5 alone": [0, 1, 2, 3, 4], "5 padded to 8": [0, 1, 2, 3, 4, 4, 4, 4]}
+
+
+def test_bf16_trunk_ignores_the_batch_size_as_jax(params):
+    """Each image's bf16 trunk map at batch sizes 1, 5 and 8 (5 padded to 8)
+    is the same, bit for bit, as in a batch of 8, in the port (conv_bf16's
+    plain version on the CPU) as in JAX; the two trunks within 8 bf16
+    epsilons of max(1, max|ref|) of each other (the bound above)."""
+    from leclip_tpu_torch.device import cast_floating
+
+    x = _x((8, 64, 64, 3), 9)
+    jv = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), params["visual"])
+    tv = cast_floating(to_port(params["visual"]), torch.bfloat16)
+
+    def jax_trunk(idx):
+        return np.asarray(jres.resnet_features(jnp.asarray(x[idx], jnp.bfloat16), jv)
+                          .astype(jnp.float32))
+
+    def port_trunk(idx):
+        return tres.resnet_features(torch.tensor(x[idx]).to(torch.bfloat16), tv).float().numpy()
+
+    full = list(range(8))
+    ref, out = jax_trunk(full), port_trunk(full)
+    assert np.abs(out - ref).max() <= 8 * 2.0 ** -8 * max(1.0, np.abs(ref).max())
+    for label, idx in BATCHES.items():
+        np.testing.assert_array_equal(jax_trunk(idx), ref[idx], err_msg=f"JAX, {label}")
+        np.testing.assert_array_equal(port_trunk(idx), out[idx], err_msg=f"port, {label}")
+
+
+@pytest.mark.parametrize("grid,k,stride,cin,pads", [
+    ((7, 7), 3, 1, 8, (1, 1)),     # the last stage's grid, 3x3
+    ((8, 8), 3, 1, 8, (1, 1)),     # a larger grid, 3x3
+    ((9, 9), 1, 1, 8, (0, 0)),     # 1x1
+    ((16, 16), 3, 2, 3, (0, 1)),   # the stem: stride 2, 3 channels, JAX's (0, 1) pad
+])
+def test_bf16_small_grid_convs_run_in_fp32(grid, k, stride, cin, pads):
+    """Every bf16 convolution on the CPU (conv_bf16's plain version) is the
+    fp32 sum of the exactly widened bf16 values, rounded once to bf16, at
+    every grid and shape; fp32 convolutions are conv2d_native's."""
+    from leclip_tpu_torch.ops import conv_kernels
+
+    x = torch.tensor(_x((3,) + grid + (cin,), 5)).to(torch.bfloat16)
+    w = tres.from_hwio(torch.tensor(_conv((k, k, cin, 6), 6))).to(torch.bfloat16)
+    lo, hi = pads
+    xp = torch.nn.functional.pad(x.float().permute(0, 3, 1, 2), (lo, hi, lo, hi))
+    want = torch.nn.functional.conv2d(xp, w.float(), stride=stride).permute(0, 2, 3, 1)
+    before = conv_kernels.conv_bf16.launches
+    got = tres.conv2d(x, w, stride)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want.to(torch.bfloat16))
+    assert conv_kernels.conv_bf16.launches == before  # the CPU launches no kernel
+    f32 = torch.tensor(_x((2,) + grid + (cin,), 8))
+    assert torch.equal(tres.conv2d(f32, w.float(), stride),
+                       tres.conv2d_native(f32, w.float(), stride))
+
+
+@pytest.mark.parametrize("k,stride,hw", [(3, 1, (8, 8)), (3, 2, (16, 16)), (1, 1, (7, 7))])
+def test_bf16_conv_gradient_matches_jax(k, stride, hw):
+    """conv_bf16 under autograd (its torch.autograd.Function: the library's
+    convolution gradient) against jax.grad of leclip_tpu's conv2d on the
+    same bf16 values, for the input and the kernel: within 2 bf16 epsilons
+    of max(1, max|ref|) (each side a bf16 gradient convolution of the same
+    bf16 values, its fp32 sum in another order, rounded once)."""
+    from leclip_tpu_torch.ops.conv_kernels import conv_bf16
+
+    rng = np.random.default_rng(11)
+    x = jnp.asarray(rng.standard_normal((2,) + hw + (16,)), jnp.bfloat16)
+    w = jnp.asarray(_conv((k, k, 16, 8), 12), jnp.bfloat16)
+    y_shape = jres.conv2d(x, w, stride=stride).shape
+    g = jnp.asarray(rng.standard_normal(y_shape), jnp.bfloat16).astype(jnp.float32)
+
+    def loss(x_, w_):
+        return jnp.sum(jres.conv2d(x_, w_, stride=stride).astype(jnp.float32) * g)
+
+    dx, dw = jax.grad(loss, argnums=(0, 1))(x, w)
+    xt = torch.tensor(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16).requires_grad_()
+    wt = tres.from_hwio(torch.tensor(np.asarray(w.astype(jnp.float32)))).to(
+        torch.bfloat16).requires_grad_()
+    out = conv_bf16(xt, wt, stride)
+    assert out.grad_fn is not None and out.dtype == torch.bfloat16
+    (out.float() * torch.tensor(np.asarray(g))).sum().backward()
+    for got, ref in ((xt.grad, dx), (tres.to_hwio(wt.grad), dw)):
+        ref = np.asarray(ref.astype(jnp.float32))
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape
+        err = np.abs(got.float().numpy() - ref).max()
+        assert err <= 2 * 2.0 ** -8 * max(1.0, np.abs(ref).max()), err
 
 
 @pytest.mark.parametrize("global_only", [True, False])
