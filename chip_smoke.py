@@ -3,18 +3,20 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. device: card name, power limit, the nvcc build of every kernel (eight
+  1. device: card name, power limit, the nvcc build of every kernel (nine
      libraries, one nvcc each, all started together), and in the SASS of the
      four libraries whose products run on the Hopper GEMMs the wgmma (HGMMA
      bf16 in attn_block_bf16, mlp_bf16 and attn_block_int8's out-projection;
      IGMMA int8 in attn_block_int8 and mlp_int8, which must hold no mma.sync
      IMMA) and UTMALDG (TMA load) instructions that show it, in
-     flash_attention's the HMMA (mma.sync) of its bf16 tensor-core path, and
-     in conv_bf16's HGMMA, UTMALDG and LDGSTS (its cp.async gather);
+     flash_attention's the HMMA (mma.sync) of its bf16 tensor-core path,
+     in conv_bf16's HGMMA, UTMALDG and LDGSTS (its cp.async loads), and in
+     conv_fp32's FFMA with no tensor-core product (HMMA, HGMMA: no TF32);
   2. kernels: each of the seven kernels of the ViT and text paths
      (attn_block_bf16, mlp_bf16, ln_quant, attn_block_int8, mlp_int8,
-     resident_attention, flash_attention; the eighth, conv_bf16, is held at
-     the RN50 trunk's shapes in phase 5) against its plain version on the card at the
+     resident_attention, flash_attention; the eighth and ninth, conv_bf16
+     and conv_fp32, are held at the RN50 trunk's shapes in phase 5) against
+     its plain version on the card at the
      main paths' shapes (ViT-B/16 crops, caption-bank text, the trainer's
      [1024, 77, 512] causal caption branch for the five block kernels; the attention
      kernels also at ViT-L/14's 264 tokens, in fp32 and bf16), with
@@ -48,16 +50,23 @@ Phases (any failure exits non-zero and prints no result line):
      TEST.PREC auto (→ bf16 for a ResNet tower) with its 8,192-row bf16
      caption bank through attn_block_bf16 + mlp_bf16, make_engine, three
      staged batches and run_full_inference → impreds.json, the image tower
-     launching conv_bf16 in each of its 55 convolutions (every RN50 bf16
-     convolution, on the card and in every batch); then TEST.PREC fp32; bf16
-     held against fp32, the fp32 tower held to full fp32 with TF32 switched
-     on around it; conv_bf16 against conv_bf16_plain at each of the 55
-     trunk shapes on the engine's own 610 crops (within 1 bf16 ulp of
-     max(|plain|, 2^-8 sum|a||w|); the share exactly equal reported), each
-     timed beside its plain version and cuDNN bf16; and the bf16 batch split
-     into stages as in phase 3 on conv_bf16, then on cuDNN bf16 throughout
-     and on the route before conv_bf16 (the 7x7-grid 3x3 convolutions in
-     fp32), the trunk's three times side by side;
+     launching conv_bf16 in each of its 55 convolutions (the batch norm, the
+     residual add and the ReLUs fused in its epilogue); then TEST.PREC fp32,
+     its tower launching conv_fp32 in each of the 55; bf16 held against
+     fp32, the fp32 tower held to cuDNN fp32 with TF32 switched on around it
+     (and bitwise itself with the tower's own no_tf32 guard lifted); at each
+     of the 55 trunk calls on the engines' own 610 crops: conv_bf16 (the
+     epilogue off) against conv_bf16_plain within 1 bf16 ulp of
+     max(|plain|, 2^-8 sum|a||w|), the fused call equal to the unfused chain
+     (torch.equal); conv_fp32 against conv_fp32_plain within 2^-16
+     sum|a||w|, and at the head's 6 fp32 products (conv_fp32 as 1x1
+     convolutions) against y @ w with TF32 off within the same bound; each
+     timed beside its plain version and cuDNN in its dtype (bf16: also the
+     fused calls against cuDNN bf16 + the unfused chain; fp32: the products
+     beside cuBLAS); each precision's batch split into stages as in phase 3 on its
+     kernel, then bf16 on conv_bf16 with the chain unfused, on cuDNN bf16
+     throughout and on the earlier grid rule's route (the 7x7-grid 3x3 convolutions in
+     fp32), fp32 on cuDNN fp32;
   6. the caption-distillation trainer that all 19 recipes run, at RN50's
      text width (12x512, seeded random fp32 weights) on 8,192 synthetic
      captions with token-decided labels over the 80 COCO classes, the ema
@@ -97,15 +106,17 @@ Phases (any failure exits non-zero and prints no result line):
      and no error; images/s, p50/p99 latency, padding share, peak memory;
      128 more at a 50 ms micro-batch window (reported); then 128 more with
      one POST /reload in flight; the RN50 batch witness (run again, reversed,
-     another company, 5 padded to 8 against 5 alone: the bf16 engine must
-     read 0 in all four, the fp32 engine's reported), also split by stage
-     (crops, trunk, pool, dense projection, scores) and by layer (each of
-     the 55 convolutions alone on its input), each over batches of 1, 2 and
-     5 images, 5 padded to 8 and the 8 reversed against the same images in
-     the batch of 8, on three routes side by side: cuDNN bf16, the route
-     before conv_bf16 and conv_bf16, which must read 0 everywhere; and one
-     line on whether the native JPEG decoder's toolchain (g++, jpeglib.h,
-     libjpeg) exists.
+     another company, 5 padded to 8 against 5 alone: the bf16 and the fp32
+     engines must read 0 in all four), also split by stage (crops, trunk,
+     pool, dense projection, scores) and by operation (each convolution
+     with its batch norm, each average pool, each product of the pool and
+     the dense projection, alone on its input), each over batches of 1, 2
+     and 5 images, 5 padded to 8 and the 8 reversed against the same images
+     in the batch of 8, for each engine on its routes side by side: bf16 on
+     cuDNN bf16, the grid rule's route and conv_bf16; fp32 on cuDNN fp32 and
+     conv_fp32; the port's route must read 0 everywhere; and one line on
+     whether the native JPEG decoder's toolchain (g++, jpeglib.h, libjpeg)
+     exists.
   8. after phase 6, on its fp32 trainer: the native JPEG decoder (what the
      probe finds, its build from runtime/, 64 JPEGs 480x640 bitwise equal to
      PIL with none sent to PIL, images/s against PIL); trainer.validate()
@@ -156,13 +167,16 @@ Phases (any failure exits non-zero and prints no result line):
      the replicated one. The ranks' launch counts join the kernels line.
      ``python3 chip_smoke.py --only-phase10`` builds the kernels and runs
      this phase alone, without the result lines.
-RN50's convolutions (models/resnet.conv2d): every bf16 one runs the
-hand-written conv_bf16 kernel on the card (its plain version, the fp32 sum
-of the widened values rounded once, on the CPU), every fp32 one cuDNN in
-full fp32. The CPU tests of that route, against JAX:
+RN50's convolutions (models/resnet.conv2d, conv_bn): on the card every bf16
+one runs the hand-written conv_bf16 kernel with the batch norm, residual
+add and ReLU in its epilogue (unfused under autograd), every fp32 one the
+hand-written conv_fp32 kernel (one FMA chain over K an output, no TF32), so
+that an image's scores do not depend on the batch in either precision; on
+the CPU their plain versions with the chain unfused. The CPU tests of those
+routes, against JAX:
 ``JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_resnet.py``; the
 card tests of every kernel: ``python -m pytest --noconftest -m cuda
-tests/test_torch_cuda_kernels.py``; the convolution kernel alone:
+tests/test_torch_cuda_kernels.py``; the convolution kernels alone:
 ``python3 scripts/probe_conv_kernel.py``.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -757,19 +771,29 @@ PATH_KERNELS = {  # path: launches of each of its kernels per layer
 
 
 RN50_CONVS = 55  # convolutions of the RN50 trunk: conv_bf16 launches of one bf16 tower forward
+# conv_fp32 launches of one fp32 forward: every convolution, and the pool's
+# fp32 products (q, k, v, c; 4) and the dense projection's (v, c; 2), which
+# run conv_fp32 as 1x1 convolutions (models/resnet._proj)
+POOL_PRODUCTS = {"dense": 6, "global": 4}
+RN50_FP32 = RN50_CONVS + POOL_PRODUCTS["dense"]
 
 
-def expect_launches(what, counts, path, n, rn_forwards=0):
+def expect_launches(what, counts, path, n, rn_forwards=0, rn32_forwards=0, rn_convs=RN50_CONVS,
+                    rn32_launches=RN50_FP32):
     """The kernels of ``path`` ran in each of n layers, conv_bf16 once per
-    convolution of each of ``rn_forwards`` bf16 RN50 tower forwards (None:
-    of a positive number of them), and no other kernel ran."""
+    convolution (``rn_convs`` a forward) of each of ``rn_forwards`` bf16
+    ResNet tower forwards and conv_fp32 ``rn32_launches`` times in each of
+    ``rn32_forwards`` fp32 ones (None: a positive number of forwards), and
+    no other kernel ran."""
     want = dict.fromkeys(counts, 0)
     want.update({k: m * n for k, m in PATH_KERNELS[path].items()})
-    convs = counts.get("conv_bf16", 0)
-    if rn_forwards is None and (convs <= 0 or convs % RN50_CONVS):
-        raise AssertionError(f"{what}: conv_bf16 launched {convs} times, not a positive "
-                             f"multiple of the trunk's {RN50_CONVS} convolutions")
-    want["conv_bf16"] = convs if rn_forwards is None else RN50_CONVS * rn_forwards
+    for kernel, forwards, per in (("conv_bf16", rn_forwards, rn_convs),
+                                  ("conv_fp32", rn32_forwards, rn32_launches)):
+        got = counts.get(kernel, 0)
+        if forwards is None and (got <= 0 or got % per):
+            raise AssertionError(f"{what}: {kernel} launched {got} times, not a positive "
+                                 f"multiple of a forward's {per}")
+        want[kernel] = got if forwards is None else per * forwards
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 
@@ -778,6 +802,12 @@ def rn_bf16(engine) -> bool:
     """Whether the engine's image tower is a bf16 ResNet (conv_bf16 in
     every convolution)."""
     return not engine.clip_cfg.is_vit and engine.compute_dtype == torch.bfloat16
+
+
+def rn_fp32(engine) -> bool:
+    """Whether the engine's image tower is an fp32 ResNet (conv_fp32 in
+    every convolution)."""
+    return not engine.clip_cfg.is_vit and engine.compute_dtype == torch.float32
 
 
 # (tower, path): the engine make_engine must build — (precision, fused bf16
@@ -827,7 +857,8 @@ def score_path(prec, opt_prec, params, clip_cfg, specs, bank, freq, images, card
         f"-> {crops} crops per batch; scoring launches {counts} (expected: "
         f"{PATH_KERNELS[launch_path] or 'none'} in each of 12 layers x {n_batches} batches)")
     expect_launches(f"{tag} scoring", counts, launch_path, 12 * n_batches,
-                    rn_forwards=n_batches if rn_bf16(engine) else 0)
+                    rn_forwards=n_batches if rn_bf16(engine) else 0,
+                    rn32_forwards=n_batches if rn_fp32(engine) else 0)
     fused = outs[0]
     if fused.shape != (N_IMAGES, 80) or not np.isfinite(fused).all():
         raise AssertionError(f"fused scores bad: shape {fused.shape}")
@@ -1083,12 +1114,18 @@ def rn_tower_flops(cfg, res=224) -> float:
     return float(f)
 
 
-# ------------------------- RN50 trunk: conv_bf16 -----------------------------
-# each convolution of the bf16 trunk against the kernel's plain version, and
-# the routes the batch witnesses compare
+# --------------------- RN50 trunk: conv_bf16 and conv_fp32 ---------------------
+# each convolution of the trunk against its kernel's plain version, and the
+# routes the batch witnesses compare
 
 # of S = sum |a||w|: the least magnitude whose bf16 ulp bounds |kernel - plain|
 CONV_FLOOR = 2.0 ** -8
+# conv_fp32 against its plain version: |d| <= 2^-16 S. Both are fp32 sums of
+# the same exact-in-fp64 products in another order: the worst case of a
+# sequential sum is K 2^-24 S (2.7e-4 S at K = 4,608), its typical error
+# sqrt(K) 2^-24 S (~4e-6 S)
+CONV32_TOL = 2.0 ** -16
+PORT_ROUTE = {torch.bfloat16: "conv_bf16", torch.float32: "conv_fp32"}
 
 
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -1097,9 +1134,9 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
 
 
 def conv_exact_grid(x, kernel, stride=1):
-    """The bf16 trunk's route before conv_bf16 (kept as a witness comparator):
-    cuDNN in bf16, except 3x3 convolutions over at most 7x7 positions, which
-    ran as the fp32 sum of the widened values rounded once."""
+    """The bf16 trunk's earlier route by grid size (a witness comparator): cuDNN
+    in bf16, except 3x3 convolutions over at most 7x7 positions, which ran as
+    the fp32 sum of the widened values rounded once."""
     from leclip_tpu_torch.models import resnet
     from leclip_tpu_torch.ops.conv_kernels import conv_bf16_plain
 
@@ -1108,110 +1145,254 @@ def conv_exact_grid(x, kernel, stride=1):
     return resnet.conv2d_native(x, kernel, stride)
 
 
-def conv_routes():
-    """{route: conv2d function} for the RN50 batch witnesses: cuDNN bf16 for
-    every shape, the route before this kernel, and the port's conv2d."""
+def conv_routes(dtype=torch.bfloat16):
+    """{route: conv2d function} for the RN50 batch witnesses of a tower in
+    ``dtype``: cuDNN in that dtype for every shape (fp32 inside the tower's
+    no_tf32), the grid rule's bf16 route, and the port's conv2d (its kernel; in bf16
+    with the batch norm and the rest of the chain in its epilogue)."""
     from leclip_tpu_torch.models import resnet
 
+    if dtype == torch.float32:
+        return {"cuDNN fp32": resnet.conv2d_native, "conv_fp32": resnet.conv2d}
     return {"cuDNN bf16": resnet.conv2d_native, "fp32 at <=7x7 grids": conv_exact_grid,
             "conv_bf16": resnet.conv2d}
 
 
+def conv_bn_over(fn):
+    """models/resnet.conv_bn with its convolution by ``fn`` and the chain
+    after it as separate ops (batch norm, + residual, ReLU)."""
+    from leclip_tpu_torch.models import resnet
+    from leclip_tpu_torch.ops.conv_kernels import bn_chain
+
+    def conv_bn(x, k, bn, stride=1, residual=None, relu=True):
+        return bn_chain(fn(x, k, stride), *resnet.bn_affine(bn, x.dtype), residual, relu)
+
+    return conv_bn
+
+
+def plain_proj(y, p):
+    """models/resnet._proj by the library's product (cuBLAS on the card) in
+    y's dtype: the library route's head, which the witnesses and the TF32
+    check compare the port's with."""
+    return y @ p["kernel"].to(y.dtype) + p["bias"].to(y.dtype)
+
+
 @contextlib.contextmanager
 def conv_route(fn):
-    """models/resnet.conv2d replaced by ``fn`` for the duration."""
+    """models/resnet.conv2d replaced by ``fn`` for the duration, conv_bn by
+    the unfused chain over it and the head's products (_proj) by the
+    library's (:func:`plain_proj`): the library route throughout. The
+    port's own conv2d keeps the port's conv_bn (fused in bf16 on the card)
+    and _proj (conv_fp32 for the fp32 products on the card)."""
     from leclip_tpu_torch.models import resnet
 
-    saved = resnet.conv2d
+    saved = resnet.conv2d, resnet.conv_bn, resnet._proj
+    if fn is not saved[0]:
+        resnet.conv_bn = conv_bn_over(fn)
+        resnet._proj = plain_proj
     resnet.conv2d = fn
     try:
         yield
     finally:
-        resnet.conv2d = saved
+        resnet.conv2d, resnet.conv_bn, resnet._proj = saved
 
 
-def conv_work(x_shape, k_shape, stride):
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """``module.name`` replaced by ``fn`` for the duration (the hooks of the
+    trunk checks and the witnesses)."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield saved
+    finally:
+        setattr(module, name, saved)
+
+
+def conv_work(x_shape, k_shape, stride, elem=2):
     """(operations, bytes) of one convolution: 2 per multiply-add over
-    K = kh*kw*Cin; bf16 input, weight and output each moved once."""
+    K = kh*kw*Cin; input, weight and output each moved once, ``elem`` bytes
+    an element (2 bf16, 4 fp32)."""
     b, h, w, cin = x_shape
     cout, _, kh, kw = k_shape
     m = b * -(-h // stride) * -(-w // stride)
-    return 2.0 * m * cout * kh * kw * cin, 2.0 * (b * h * w * cin + cout * kh * kw * cin + m * cout)
+    return 2.0 * m * cout * kh * kw * cin, elem * (b * h * w * cin + cout * kh * kw * cin
+                                                   + m * cout)
 
 
-def trunk_conv_check(vis, flat, card, reps=3, time_it=True):
-    """The bf16 trunk over ``flat`` crops with every convolution run by the
-    kernel, each one held on its own input against conv_bf16_plain: within 1
-    bf16 ulp of max(|plain|, CONV_FLOOR * S), S = sum |a||w| the element's
-    own scale (the two round the same exact bf16 products and differ only in
-    the order of an fp32 sum, whose error is a few fp32 ulps of S; where the
+def conv_name(x, k, stride):
+    kh = k.shape[-1]
+    return f"{kh}x{kh}/{stride} {x.shape[1]}x{x.shape[2]}x{x.shape[3]}->{k.shape[0]}"
+
+
+def trunk_conv_check(vis, flat, card, reps=3, time_it=True, heads=32):
+    """The trunk over ``flat`` crops (bf16 or fp32, the tower's dtype) with
+    each of its 55 convolution-with-batch-norm calls (models/resnet.conv_bn)
+    hooked, each held on its own input:
+
+    bf16: conv_bf16 with the epilogue off against conv_bf16_plain within 1
+    bf16 ulp of max(|plain|, CONV_FLOOR * S), S = sum |a||w| the element's own
+    scale (the two round the same exact bf16 products and differ only in the
+    order of an fp32 sum, whose error is a few fp32 ulps of S; where the
     products cancel, |plain| is far below S and its own ulp below that
-    error). Reports the share of elements exactly equal and the share within
-    1 ulp of |plain| itself; with ``time_it``, times the kernel, the plain
-    version and cuDNN bf16 (conv2d_native, the library call) per
-    convolution. Returns {rows, totals}."""
+    error); the fused call (batch norm, residual, ReLU in the epilogue) equal
+    to the unfused chain over the kernel's output (torch.equal). fp32:
+    conv_fp32 against conv_fp32_plain within CONV32_TOL * S; then the head
+    (the global pool and the dense projection) over the trunk map with each
+    of its 6 fp32 products (models/resnet._proj) hooked: conv_fp32 as a 1x1
+    convolution (conv_kernels.matmul_fp32) against ``y @ w`` with TF32 off
+    within CONV32_TOL * S. Reports the share of elements exactly equal; with
+    ``time_it``, times per call the kernel (epilogue off), its plain version
+    and cuDNN in the same dtype (conv2d_native, the library call), in bf16
+    the fused call and cuDNN bf16 followed by the unfused chain, in fp32 each
+    product and cuBLAS's. Returns {rows, totals, products}."""
     from leclip_tpu_torch.device import no_tf32
     from leclip_tpu_torch.models import resnet
-    from leclip_tpu_torch.ops.conv_kernels import conv_bf16, conv_bf16_plain, conv_library
+    from leclip_tpu_torch.ops import conv_kernels as ck
 
+    dtype = flat.dtype
+    bf16 = dtype == torch.bfloat16
+    kernel = PORT_ROUTE[dtype]
     rows = []
+    port_conv_bn = resnet.conv_bn
 
-    def recording(x, k, stride=1):
-        out = conv_bf16(x, k, stride)
-        plain = conv_bf16_plain(x, k, stride)
+    def recording(x, k, bn, stride=1, residual=None, relu=True):
+        scale, offset = resnet.bn_affine(bn, dtype)
         with no_tf32():
-            scale = conv_library(x.float().abs(), k.float().abs(), stride)
+            s_abs = ck.conv_library(x.float().abs(), k.float().abs(), stride)
+        row = dict(name=conv_name(x, k, stride))
+        if bf16:
+            fused = port_conv_bn(x, k, bn, stride, residual, relu)
+            out = ck.conv_bf16(x, k, stride)
+            plain = ck.conv_bf16_plain(x, k, stride)
+            row["fused_equal"] = torch.equal(fused, ck.bn_chain(out, scale, offset, residual,
+                                                                relu))
+        else:
+            out = ck.conv_fp32(x, k, stride)
+            plain = ck.conv_fp32_plain(x, k, stride)
+            fused = ck.bn_chain(out, scale, offset, residual, relu)  # the port's fp32 chain
         torch.cuda.synchronize()
         if not torch.isfinite(out.float()).all():
-            raise AssertionError("conv_bf16: non-finite output")
+            raise AssertionError(f"{kernel}: non-finite output")
         p = plain.float()
         d = (out.float() - p).abs()
-        tol = bf16_ulp(torch.maximum(p.abs(), CONV_FLOOR * scale))
-        kh = k.shape[-1]
-        row = dict(name=f"{kh}x{kh}/{stride} {x.shape[1]}x{x.shape[2]}x{x.shape[3]}->{k.shape[0]}",
-                   worst=(d / tol).max().item(), exact=(d == 0).float().mean().item(),
-                   own_ulp=(d <= bf16_ulp(p)).float().mean().item(), max_abs=d.max().item())
-        del plain, p, d, tol, scale
-        flops, nbytes = conv_work(tuple(x.shape), tuple(k.shape), stride)
-        row["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        row["bound_by"] = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES \
-            else "bytes"
+        if bf16:
+            tol = bf16_ulp(torch.maximum(p.abs(), CONV_FLOOR * s_abs))
+            row["worst"] = (d / tol).max().item()
+            row["own_ulp"] = (d <= bf16_ulp(p)).float().mean().item()
+        else:
+            tol = CONV32_TOL * s_abs
+            row["worst"] = 0.0 if not (d > 0).any() else (d / tol.clamp(min=1e-38)).max().item()
+        row.update(exact=(d == 0).float().mean().item(), max_abs=d.max().item())
+        del plain, p, d, tol, s_abs
+        flops, nbytes = conv_work(tuple(x.shape), tuple(k.shape), stride, 2 if bf16 else 4)
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
+        row["bound_ms"] = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
+        row["bound_by"] = "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes"
         if time_it:
-            row["ms"] = cuda_ms(lambda: conv_bf16(x, k, stride), reps)
-            row["plain_ms"] = cuda_ms(lambda: conv_bf16_plain(x, k, stride), reps)
-            row["library_ms"] = cuda_ms(lambda: resnet.conv2d_native(x, k, stride), reps)
+            with no_tf32():
+                if bf16:
+                    row["ms"] = cuda_ms(lambda: ck.conv_bf16(x, k, stride), reps)
+                    row["plain_ms"] = cuda_ms(lambda: ck.conv_bf16_plain(x, k, stride), reps)
+                    row["fused_ms"] = cuda_ms(
+                        lambda: port_conv_bn(x, k, bn, stride, residual, relu), reps)
+                    row["fused_library_ms"] = cuda_ms(lambda: ck.bn_chain(
+                        resnet.conv2d_native(x, k, stride), scale, offset, residual, relu), reps)
+                else:
+                    row["ms"] = cuda_ms(lambda: ck.conv_fp32(x, k, stride), reps)
+                    row["plain_ms"] = cuda_ms(lambda: ck.conv_fp32_plain(x, k, stride), reps)
+                row["library_ms"] = cuda_ms(lambda: resnet.conv2d_native(x, k, stride), reps)
         rows.append(row)
         if row["worst"] > 1:
-            raise AssertionError(f"conv_bf16 disagrees with its plain version at {row['name']}: "
-                                 f"{row['worst']:.3g} ulps of max(|plain|, 2^-8 S)")
-        return out
+            raise AssertionError(f"{kernel} disagrees with its plain version at {row['name']}: "
+                                 f"{row['worst']:.3g} of its tolerance")
+        if bf16 and not row["fused_equal"]:
+            raise AssertionError(f"conv_bf16's fused epilogue differs from the unfused chain at "
+                                 f"{row['name']}")
+        del out
+        return fused
 
-    with conv_route(recording), torch.inference_mode():
-        resnet.resnet_features(flat, vis)
+    products = []
+    port_proj = resnet._proj
+
+    def product(y, p):
+        w = p["kernel"].to(y.dtype)
+        out = ck.matmul_fp32(y, w)
+        plain = ck.matmul_fp32_plain(y, w)
+        s_abs = ck.matmul_fp32_plain(y.abs(), w.abs())
+        torch.cuda.synchronize()
+        d = (out - plain).abs()
+        row = dict(name=f"product {y.shape[-1]}->{w.shape[1]} at {y.shape[:-1].numel()} rows",
+                   worst=0.0 if not (d > 0).any()
+                   else (d / (CONV32_TOL * s_abs).clamp(min=1e-38)).max().item(),
+                   exact=(d == 0).float().mean().item(), max_abs=d.max().item(),
+                   finite=bool(torch.isfinite(out).all()))
+        if time_it:
+            row["ms"] = cuda_ms(lambda: ck.matmul_fp32(y, w), reps)
+            row["plain_ms"] = cuda_ms(lambda: ck.matmul_fp32_plain(y, w), reps)
+        products.append(row)
+        if not row["finite"] or row["worst"] > 1:
+            raise AssertionError(f"conv_fp32 disagrees with y @ w at the {row['name']}: "
+                                 f"{row['worst']:.3g} of its tolerance")
+        del out, plain, s_abs, d
+        return port_proj(y, p)
+
+    with patched(resnet, "conv_bn", recording), torch.inference_mode():
+        feat = resnet.resnet_features(flat, vis)
+    if not bf16:
+        with patched(resnet, "_proj", product), torch.inference_mode():
+            resnet.attention_pool(feat, vis["attnpool"], heads, if_pos=False, global_only=True)
+            resnet.project_dense(feat, vis["attnpool"])
+        if len(products) != POOL_PRODUCTS["dense"]:
+            raise AssertionError(f"the fp32 head ran {len(products)} products, expected "
+                                 f"{POOL_PRODUCTS['dense']}")
+    del feat
     keys = ("ms", "plain_ms", "library_ms", "bound_ms") if time_it else ("bound_ms",)
+    if time_it and bf16:
+        keys += ("fused_ms", "fused_library_ms")
     totals = {k: float(sum(r[k] for r in rows)) for k in keys}
     by = {b: sum(r["bound_ms"] for r in rows if r["bound_by"] == b)
           for b in ("bytes", "operations")}
     totals["bound_by"] = max(by, key=by.get)  # what bounds most of the summed bound
     totals["max_abs_err"] = max(r["max_abs"] for r in rows)
+    totals["worst"] = max(r["worst"] for r in rows)
     totals["exact"] = float(np.mean([r["exact"] for r in rows]))
-    log(f"[conv_bf16] {len(rows)} trunk convolutions on {flat.shape[0]} crops, each against "
-        f"conv_bf16_plain on its input (tolerance: 1 bf16 ulp of max(|plain|, 2^-8 S), S = "
-        f"sum|a||w|; reason: the same bf16 products, fp32 sums in another order): worst "
-        f"{max(r['worst'] for r in rows):.3g} ulps, max|d| {totals['max_abs_err']:.4g}; share "
-        f"exactly equal {min(r['exact'] for r in rows):.6f}..{max(r['exact'] for r in rows):.6f}"
-        f", within 1 ulp of |plain| itself {min(r['own_ulp'] for r in rows):.8f}.."
-        f"{max(r['own_ulp'] for r in rows):.8f} on {card}")
+    tol_text = ("1 bf16 ulp of max(|plain|, 2^-8 S), S = sum|a||w|; reason: the same bf16 "
+                "products, fp32 sums in another order" if bf16 else
+                "2^-16 S, S = sum|a||w|; reason: fp32 sums of the same products in another "
+                "order, worst case K 2^-24 S")
+    log(f"[{kernel}] {len(rows)} trunk convolutions on {flat.shape[0]} crops, each against its "
+        f"plain version on its input (tolerance: {tol_text}): worst {totals['worst']:.3g} of "
+        f"the tolerance, max|d| {totals['max_abs_err']:.4g}; share exactly equal "
+        f"{min(r['exact'] for r in rows):.6f}..{max(r['exact'] for r in rows):.6f}"
+        + (f", within 1 ulp of |plain| itself {min(r['own_ulp'] for r in rows):.8f}.."
+           f"{max(r['own_ulp'] for r in rows):.8f}; fused epilogue equal to the unfused chain "
+           f"at all {len(rows)} calls" if bf16 else "") + f" on {card}")
     for r in rows:
-        log(f"  {r['name']:>26}: worst {r['worst']:.3g} ulps, exact {r['exact']:.6f}, own-ulp "
-            f"{r['own_ulp']:.8f}"
-            + (f"; {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, cuDNN bf16 {r['library_ms']:.3f}, "
-               f"bound {r['bound_ms']:.3f} by {r['bound_by']})" if time_it else ""))
+        log(f"  {r['name']:>26}: worst {r['worst']:.3g}, exact {r['exact']:.6f}"
+            + (f", own-ulp {r['own_ulp']:.8f}" if bf16 else "")
+            + (f"; {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, cuDNN {r['library_ms']:.3f}, "
+               f"bound {r['bound_ms']:.3f} by {r['bound_by']})" if time_it else "")
+            + (f"; fused {r['fused_ms']:.3f} (cuDNN + unfused chain {r['fused_library_ms']:.3f})"
+               if time_it and bf16 else ""))
     if time_it:
-        log(f"[conv_bf16] the trunk's convolutions in all: {totals['ms']:.3f} ms (plain "
-            f"{totals['plain_ms']:.3f}, cuDNN bf16 {totals['library_ms']:.3f}, bound "
-            f"{totals['bound_ms']:.3f}) on {card}")
-    return dict(rows=rows, totals=totals)
+        log(f"[{kernel}] the trunk's convolutions in all: {totals['ms']:.3f} ms (plain "
+            f"{totals['plain_ms']:.3f}, cuDNN {totals['library_ms']:.3f}, bound "
+            f"{totals['bound_ms']:.3f})"
+            + (f"; the fused calls {totals['fused_ms']:.3f} ms (cuDNN bf16 + the unfused chain "
+               f"{totals['fused_library_ms']:.3f})" if bf16 else "") + f" on {card}")
+    for r in products:
+        log(f"  {r['name']:>32}: conv_fp32 1x1 against y @ w (TF32 off; tolerance 2^-16 S, "
+            f"S = |y| @ |w|): worst {r['worst']:.3g}, exact {r['exact']:.6f}, max|d| "
+            f"{r['max_abs']:.4g}" + (f"; {r['ms']:.3f} ms (cuBLAS fp32 {r['plain_ms']:.3f})"
+                                     if time_it else "") + f" on {card}")
+    if products:
+        totals["products"] = {"calls": len(products),
+                              "worst": max(r["worst"] for r in products),
+                              "max_abs_err": max(r["max_abs"] for r in products),
+                              **({k: float(sum(r[k] for r in products))
+                                  for k in ("ms", "plain_ms")} if time_it else {})}
+    return dict(rows=rows, totals=totals, products=products)
 
 
 def randomize_bn(tree, gen):
@@ -1242,11 +1423,14 @@ def phase_rn50(card, inputs):
     bf16 caption bank through the block kernels, six members, make_engine,
     three staged batches and run_full_inference over PNG files →
     impreds.json; the image tower launches conv_bf16 in each of its 55
-    convolutions, each one held against conv_bf16_plain and timed beside
-    cuDNN bf16 (trunk_conv_check). Then
-    TEST.PREC fp32 on the same weights widened (the fp32 bank, plain). bf16
-    held against fp32; the fp32 tower's convolutions held to full fp32 with
-    TF32 switched on around the call."""
+    convolution-with-batch-norm calls (the chain fused in its epilogue).
+    Then TEST.PREC fp32 on the same weights widened (the fp32 bank, plain),
+    its tower launching conv_fp32 in each of the 55. bf16 held against fp32;
+    the fp32 tower held to full fp32 with TF32 switched on around the call;
+    each kernel held against its plain version at every trunk shape and
+    timed beside cuDNN in its dtype (trunk_conv_check); each precision's
+    batch split into stages on its port route and on the routes it is
+    compared with."""
     from PIL import Image
 
     from leclip_tpu_torch.device import cast_floating
@@ -1315,7 +1499,11 @@ def phase_rn50(card, inputs):
     if not (cos_g > 0.99 and cos_d > 0.99 and corr > 0.999):
         raise AssertionError("rn50: the bf16 path disagrees with the fp32 path")
 
-    # the fp32 tower runs in full fp32 whatever the caller's TF32 setting
+    # the fp32 tower runs in full fp32 whatever the caller's TF32 setting: the
+    # port's trunk (conv_fp32) and features with TF32 switched on around the
+    # call against cuDNN fp32 under cudnn.flags(allow_tf32=False); the port's
+    # trunk with its own no_tf32 guard lifted as well, which conv_fp32 must
+    # not notice (bitwise), and cuDNN's with the guard lifted: what TF32 gives
     p32 = out["fp32"]["params"]
     x = flat[:64].float()
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
@@ -1324,13 +1512,12 @@ def phase_rn50(card, inputs):
         with torch.inference_mode():
             got = resnet.resnet_features(x, p32["visual"])
             g_got = encode_image_features(p32, cfg, x, DenseFlags()).global_feat
-            guard = resnet._no_tf32
-            resnet._no_tf32 = contextlib.nullcontext  # what TF32 would have given
-            try:
-                tf32 = resnet.resnet_features(x, p32["visual"])
-            finally:
-                resnet._no_tf32 = guard
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), torch.inference_mode():
+            with patched(resnet, "_no_tf32", contextlib.nullcontext):
+                lifted = resnet.resnet_features(x, p32["visual"])
+                with conv_route(resnet.conv2d_native):
+                    tf32 = resnet.resnet_features(x, p32["visual"])
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), torch.inference_mode(), \
+                conv_route(resnet.conv2d_native):
             torch.backends.cuda.matmul.allow_tf32 = False
             want = resnet.resnet_features(x, p32["visual"])
             g_want = encode_image_features(p32, cfg, x, DenseFlags()).global_feat
@@ -1341,37 +1528,53 @@ def phase_rn50(card, inputs):
                  (g_got - g_want).abs().max().item())
     d_tf32 = (tf32 - want).abs().max().item() / scale
     log(f"[rn50:fp32] with TF32 switched on around the call, {x.shape[0]} crops: the port's "
-        f"fp32 trunk map and features against cudnn.flags(allow_tf32=False): {d_port:.3g} "
-        f"(<= 1e-4, of max|map| {scale:.4g}); the same trunk with the port's guard lifted: "
-        f"{d_tf32:.3g}")
-    if d_port > 1e-4:
+        f"fp32 trunk map (conv_fp32) and features against cuDNN fp32 under "
+        f"cudnn.flags(allow_tf32=False): {d_port:.3g} (<= 1e-4, of max|map| {scale:.4g}); the "
+        f"port's trunk with its no_tf32 guard lifted bitwise the same: "
+        f"{torch.equal(lifted, got)}; cuDNN's trunk with the guard lifted (TF32): {d_tf32:.3g}")
+    if d_port > 1e-4 or not torch.equal(lifted, got):
         raise AssertionError("rn50: the fp32 tower ran in TF32")
-    # conv_bf16 against its plain version at each of the 55 trunk shapes, on
-    # the engine's own crops, with the kernel's, the plain version's and
-    # cuDNN bf16's time per convolution
+    # each kernel against its plain version at each of the 55 trunk shapes, on
+    # the engine's own crops, timed per convolution beside cuDNN in its dtype
     conv = trunk_conv_check(out["bf16"]["engine"].clip_params["visual"], flats["bf16"], card)
     torch.cuda.empty_cache()
-    stages = stage_split("rn50:bf16", out["bf16"]["engine"], images, card)
-    # the same batch on the routes before conv_bf16: cuDNN bf16 throughout, and
-    # the 7x7-grid 3x3 convolutions in fp32 (the route of the previous repair)
-    before = {}
-    for route, fn in conv_routes().items():
-        if route != "conv_bf16":
-            with conv_route(fn):
-                before[route] = stage_split(f"rn50:bf16 {route} (before)",
-                                            out["bf16"]["engine"], images, card)
+    conv32 = trunk_conv_check(out["fp32"]["engine"].clip_params["visual"], flats["fp32"], card,
+                              heads=cfg.vision_heads)
+    torch.cuda.empty_cache()
+    # the batch split into stages on the port's routes, then on the routes it
+    # is compared with: bf16 — conv_bf16 with the chain unfused (the route
+    # before the fused epilogue), cuDNN bf16 throughout, the grid rule's
+    # route; fp32 — cuDNN fp32
+    stages, before = {}, {"bf16": {}, "fp32": {}}
     trunk = STAGES[2]
-    log(f"[rn50:bf16] trunk (stem + trunk stage) {stages[trunk]:.3f} ms on conv_bf16, "
-        + ", ".join(f"{stages[trunk] / b[trunk]:.3f}x of {b[trunk]:.3f} ms on {r}"
-                    for r, b in before.items())
-        + f"; the batch {sum(stages.values()):.3f} ms against "
-        + ", ".join(f"{sum(b.values()):.3f} ms" for b in before.values()) + f" on {card}")
+    for prec in ("bf16", "fp32"):
+        eng = out[prec]["engine"]
+        port = PORT_ROUTE[eng.compute_dtype]
+        stages[prec] = stage_split(f"rn50:{prec}", eng, images, card)
+        routes = {r: fn for r, fn in conv_routes(eng.compute_dtype).items() if r != port}
+        if prec == "bf16":
+            from leclip_tpu_torch.ops.conv_kernels import conv_bf16
+            routes = {"conv_bf16 unfused": lambda x_, k_, s_=1: conv_bf16(x_, k_, s_), **routes}
+        for route, fn in routes.items():
+            with conv_route(fn):
+                before[prec][route] = stage_split(f"rn50:{prec} {route}", eng, images, card)
+        mine = stages[prec]
+        log(f"[rn50:{prec}] trunk (stem + trunk stage) {mine[trunk]:.3f} ms on {port}, "
+            + ", ".join(f"{mine[trunk] / b[trunk]:.3f}x of {b[trunk]:.3f} ms on {r}"
+                        for r, b in before[prec].items())
+            + f"; the batch {sum(mine.values()):.3f} ms against "
+            + ", ".join(f"{sum(b.values()):.3f} ms ({r})" for r, b in before[prec].items())
+            + f" on {card}")
     keep = dict(engine=out["bf16"]["engine"], engine_fp32=out["fp32"]["engine"], params=params,
                 clip_cfg=cfg, bank=out["bf16"]["bank"], freq=freq)
     return ({k: out["bf16"]["bank_counts"][k] + out["bf16"]["counts"][k]
              for k in out["bf16"]["counts"]}, out["bf16"]["bank_counts"], stages, keep,
-            dict(conv, counts=out["bf16"]["counts"], trunk_ms=stages[trunk],
-                 trunk_before_ms={r: b[trunk] for r, b in before.items()}))
+            dict(conv, counts=out["bf16"]["counts"], trunk_ms=stages["bf16"][trunk],
+                 batch_ms=sum(stages["bf16"].values()),
+                 trunk_before_ms={r: b[trunk] for r, b in before["bf16"].items()}),
+            dict(conv32, counts=out["fp32"]["counts"], trunk_ms=stages["fp32"][trunk],
+                 batch_ms=sum(stages["fp32"].values()),
+                 trunk_before_ms={r: b[trunk] for r, b in before["fp32"].items()}))
 
 
 def phase_unfused_paths(card, inputs):
@@ -1491,8 +1694,10 @@ SASS_KERNELS = {
     "flash_attention": (("HMMA",), ()),             # bf16 flash on the tensor cores (mma.sync)
     # wgmma on stages gathered by cp.async (LDGSTS), the weights by TMA
     "conv_bf16": (("HGMMA", "UTMALDG", "LDGSTS"), ()),
+    # fp32 FMA chains on the CUDA cores: no tensor-core (TF32) product
+    "conv_fp32": (("FFMA",), ("HMMA", "HGMMA")),
 }
-SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "UTMASTG", "LDGSTS", "CALL")
+SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "UTMASTG", "LDGSTS", "FFMA", "CALL")
 # (library, kernel): the most subroutine calls the kernel's SASS may hold.
 # ln_quant_rows divides only per row: the LN's two means, the row's scale
 # and its correctly rounded reciprocal, each with a slow path ptxas may
@@ -2357,8 +2562,7 @@ def rn_batch_witness(engines, images, card):
     at other positions (company), and five images padded to 8 by repeating
     the last, as the service pads, against the same five unpadded (batch
     size); on the bf16 engine (every convolution on conv_bf16) and the fp32
-    one (cuDNN fp32). The bf16 engine must read 0 in all four; the fp32
-    engine's are reported."""
+    one (every convolution on conv_fp32). Both must read 0 in all four."""
     a = images[:SERVICE_BATCH]
     out = {}
     for prec, eng in engines.items():
@@ -2377,8 +2581,9 @@ def rn_batch_witness(engines, images, card):
             f"of the same images' scores: " + ", ".join(f"{k} {v:.4g} ({v / ulp:.3g} bf16 ulps)"
                                                         for k, v in d.items())
             + f" (a bf16 ulp of max(1, max|x|): {ulp:.4g}) on {card}")
-    if any(out["bf16"].values()):
-        raise AssertionError(f"RN50 bf16 scores depend on the batch: {out['bf16']}")
+    moved = {prec: d for prec, d in out.items() if any(d.values())}
+    if moved:
+        raise AssertionError(f"RN50 scores depend on the batch: {moved}")
     return out
 
 
@@ -2411,10 +2616,11 @@ def rn_witness_stages(engine, images, card):
     pass (crops after resize + normalise, the trunk map, the pool's global
     feature, the dense projection, the fused scores) for each batch of
     WITNESS_VARIANTS, image for image against the same images in the batch
-    of SERVICE_BATCH, under each route of conv_routes(). On the port's route
-    (conv_bf16) every stage must read max|d| = 0 in every batch (the JAX
-    trunk gives each image the same values whatever the batch); the other
-    routes are reported. Returns {route: {stage: {variant: max|d|}}}."""
+    of SERVICE_BATCH, under each route of conv_routes() for the engine's
+    dtype. On the port's route (conv_bf16 or conv_fp32) every stage must
+    read max|d| = 0 in every batch (the JAX trunk gives each image the same
+    values whatever the batch); the other routes are reported. Returns
+    {route: {stage: {variant: max|d|}}}."""
     stem, head = tower_parts(engine)
 
     def stages(batch):
@@ -2434,7 +2640,7 @@ def rn_witness_stages(engine, images, card):
 
     a = images[:SERVICE_BATCH]
     out = {}
-    for route, fn in conv_routes().items():
+    for route, fn in conv_routes(engine.compute_dtype).items():
         with conv_route(fn):
             base = stages(a)
             res = {k: {} for k in base}
@@ -2446,50 +2652,107 @@ def rn_witness_stages(engine, images, card):
         out[route] = res
         del base
     dtype = str(engine.compute_dtype).split(".")[-1]
+    port = PORT_ROUTE[engine.compute_dtype]
     moved = witness_report(f"batch witness by stage, RN50 {dtype} engine, {SERVICE_BATCH} images "
                            f"({SERVICE_BATCH * 305} crops)", out, card)
-    if moved["conv_bf16"]:
-        raise AssertionError(f"RN50 bf16 stages depend on the batch: {moved['conv_bf16']}")
+    if moved[port]:
+        raise AssertionError(f"RN50 {dtype} stages depend on the batch: {moved[port]}")
     return out
 
 
-def rn_witness_layers(vis, flat, card):
-    """Each convolution of the RN50 bf16 trunk by itself, on its own input in
-    the trunk's pass over ``flat`` (SERVICE_BATCH images of 305 crops each),
-    run for each batch of WITNESS_VARIANTS and compared image for image with
-    the same images in the full batch, by each route of conv_routes(). The
-    kernel's route must read 0 at every convolution and in every batch; the
-    others are reported (which convolutions move, and in which batches).
-    Returns {route: {layer: {variant: max|d|}}}."""
+def rn_witness_layers(vis, flat, card, heads=32):
+    """Each operation of the RN50 tower by itself, on its own input in the
+    tower's pass over ``flat`` (SERVICE_BATCH images of 305 crops each, bf16
+    or fp32): every convolution with its batch norm (models/resnet.conv_bn:
+    55, with the residual add and ReLU where the trunk has them), every
+    average pool (the stem's and the anti-aliasing ones) and every product
+    of the single-query attention pool (q, k, v, c, its logits and its
+    probabilities times v) and of the dense projection (v, c), run for each
+    batch of WITNESS_VARIANTS and compared
+    image for image with the same images in the full batch. The
+    convolutions run by each route of conv_routes() for the dtype (cuDNN's
+    and the grid rule's routes unfused; the port's as the tower runs it), and
+    so do the pool's and the dense projection's products (the port's _proj
+    on its route, the library's product on the others, as conv_route runs
+    them); pools and the per-head products are the tower's own, reported
+    under every route. The port's
+    route must read 0 at every operation and in every batch; the others are
+    reported (which operations move, and in which batches). Returns
+    {route: {operation: {variant: max|d|}}}."""
     from leclip_tpu_torch.models import resnet
 
-    routes = conv_routes()
+    dtype = flat.dtype
+    routes = conv_routes(dtype)
+    port = PORT_ROUTE[dtype]
     out = {r: {} for r in routes}
     n = SERVICE_BATCH
+    port_conv_bn, port_pool, port_proj = resnet.conv_bn, resnet.avg_pool, resnet._proj
 
-    def recording(x, k, stride=1):
-        kh = k.shape[-1]
-        name = f"{len(out['conv_bf16']):02d} {kh}x{kh}/{stride} {x.shape[1]}x{x.shape[2]}x" \
-               f"{x.shape[3]}->{k.shape[0]}"
-        per_img = x.reshape((n, -1) + tuple(x.shape[1:]))
+    def sub(t, idx):
+        return None if t is None else t.reshape((n, -1) + tuple(t.shape[1:]))[idx].flatten(0, 1)
+
+    def witness(res, run):
+        """{variant: max|d|} of run(idx) against run(all) image for image."""
+        base = run(list(range(n)))
+        base = base.reshape((n, -1) + tuple(base.shape[1:]))
+        for variant, idx in WITNESS_VARIANTS.items():
+            got = run(idx)
+            res[variant] = (got.reshape((len(idx), -1) + tuple(got.shape[1:])).float()
+                            - base[idx].float()).abs().max().item()
+            del got
+        del base
+
+    def name(kind):
+        return f"{len(out[port]):02d} {kind}"
+
+    def conv_bn(x, k, bn, stride=1, residual=None, relu=True):
+        label = name(f"conv {conv_name(x, k, stride)}")
         for route, fn in routes.items():
-            base = fn(x, k, stride)
-            base = base.reshape((n, -1) + tuple(base.shape[1:]))
-            res = out[route][name] = {}
-            for variant, idx in WITNESS_VARIANTS.items():
-                got = fn(per_img[idx].flatten(0, 1), k, stride)
-                res[variant] = (got.reshape((len(idx), -1) + tuple(got.shape[1:])).float()
-                                - base[idx].float()).abs().max().item()
-                del got
-            del base
-        return routes["conv_bf16"](x, k, stride)
+            run_bn = port_conv_bn if route == port else conv_bn_over(fn)
+            witness(out[route].setdefault(label, {}), lambda idx: run_bn(
+                sub(x, idx), k, bn, stride, sub(residual, idx), relu))
+        return port_conv_bn(x, k, bn, stride, residual, relu)
 
-    with conv_route(recording), torch.inference_mode():
-        resnet.resnet_features(flat, vis)
-    moved = witness_report(f"batch witness by layer, RN50 bf16 trunk, {len(out['conv_bf16'])} "
-                           f"convolutions on {flat.shape[0]} crops of {n} images", out, card)
-    if moved["conv_bf16"]:
-        raise AssertionError(f"RN50 bf16 convolutions depend on the batch: {moved['conv_bf16']}")
+    def shared(label, run):  # an operation every route runs the same way
+        res = {}
+        witness(res, run)
+        for route in routes:
+            out[route][label] = dict(res)
+
+    def avg_pool(x, window):
+        if window > 1:
+            shared(name(f"avg_pool {window} {x.shape[1]}x{x.shape[2]}x{x.shape[3]}"),
+                   lambda idx: port_pool(sub(x, idx), window))
+        return port_pool(x, window)
+
+    def proj(y, p):  # the port's _proj on its route, the library's on the others
+        label = name(f"product {y.shape[-1]}->{p['kernel'].shape[-1]} ({y.shape[1]} rows a "
+                     f"crop)")
+        for route in routes:
+            run = port_proj if route == port else plain_proj
+            witness(out[route].setdefault(label, {}), lambda idx: run(sub(y, idx), p))
+        return port_proj(y, p)
+
+    def batched(label, fn):  # the pool's per-head products, [B, H, ...] @ [B, H, ...]
+        def run(u, v):
+            shared(name(f"{label} {tuple(u.shape[1:])} @ {tuple(v.shape[1:])}"),
+                   lambda idx: fn(sub(u, idx), sub(v, idx)))
+            return fn(u, v)
+        return run
+
+    with patched(resnet, "conv_bn", conv_bn), patched(resnet, "avg_pool", avg_pool), \
+            patched(resnet, "_proj", proj), \
+            patched(resnet, "_mm32", batched("pool logits", resnet._mm32)), \
+            patched(resnet, "_matmul", batched("pool probs x v", resnet._matmul)), \
+            torch.inference_mode():
+        feat = resnet.resnet_features(flat, vis)
+        resnet.attention_pool(feat, vis["attnpool"], heads, if_pos=False, global_only=True)
+        resnet.project_dense(feat, vis["attnpool"])
+    kind = str(dtype).split(".")[-1]
+    moved = witness_report(f"batch witness by operation, RN50 {kind} tower, {len(out[port])} "
+                           f"operations on {flat.shape[0]} crops of {n} images", out, card)
+    if moved[port]:
+        raise AssertionError(f"RN50 {kind} operations depend on the batch: {moved[port]}")
     return out
 
 
@@ -2498,7 +2761,8 @@ def rn_witness_layers_engine(engine, images, card):
     SERVICE_BATCH images."""
     with torch.inference_mode():
         crops = engine._crops(engine.stage_batch_fused(images[:SERVICE_BATCH]))
-    return rn_witness_layers(engine.clip_params["visual"], crops.flatten(0, 1), card)
+    return rn_witness_layers(engine.clip_params["visual"], crops.flatten(0, 1), card,
+                             engine.clip_cfg.vision_heads)
 
 
 def decoder_probe():
@@ -2559,10 +2823,12 @@ def phase_dump_bank_service(card, inputs, vit, rn):
         part("serve:rn", service, "rn", rn, blobs, tmp, card)
         part("witness:rn", rn_batch_witness, {"bf16": rn["engine"], "fp32": rn["engine_fp32"]},
              res["serve:rn"]["images"], card)
-        part("witness-stages:rn", rn_witness_stages, rn["engine"], res["serve:rn"]["images"],
-             card)
-        part("witness-layers:rn", rn_witness_layers_engine, rn["engine"],
-             res["serve:rn"]["images"], card)
+        for prec, key in (("bf16", "engine"), ("fp32", "engine_fp32")):
+            part(f"witness-stages:rn {prec}", rn_witness_stages, rn[key],
+                 res["serve:rn"]["images"], card)
+            part(f"witness-layers:rn {prec}", rn_witness_layers_engine, rn[key],
+                 res["serve:rn"]["images"], card)
+            torch.cuda.empty_cache()
         decoder_probe()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2679,7 +2945,9 @@ def validate_run(tag, trainer, paths, n_images, path, card):
         evaluator.MLClassificationEvaluator.process = orig
     out, labels, local = (np.concatenate([c[i] for c in calls]) for i in range(3))
     n_batches = math.ceil(n_images / SERVICE_BATCH)
-    expect_launches(f"[validate:{tag}] validate()", counts, path, 12 * n_batches)
+    rn32 = None if not trainer.clip_cfg.is_vit else 0  # the fp32 engine's tower: conv_fp32
+    expect_launches(f"[validate:{tag}] validate()", counts, path, 12 * n_batches,
+                    rn32_forwards=rn32)
     prompt = {k: v for k, v in trainer.state.params.items() if k != "_adapter"}
     spec = build_model_spec(trainer.clip_params, trainer.clip_cfg, prompt, trainer.constants,
                             trainer.flags)
@@ -2964,7 +3232,8 @@ def zeroshot_cli(img_dir, paths, card):
                                  f"{run.stderr}")
         scored = re.search(r"scored (\d+) images in ([\d.]+) s", run.stdout)
         counts = json.loads(re.search(r"^kernel launches: (.*)$", run.stdout, re.M).group(1))
-        expect_launches(f"[zeroshot:{backbone}] the CLI's process", counts, path, 12)
+        expect_launches(f"[zeroshot:{backbone}] the CLI's process", counts, path, 12,
+                        rn32_forwards=None if backbone.startswith("RN") else 0)
         with open(out_json) as f:
             got = json.load(f)
         clip_cfg, params = load_clip(setup_config(), argparse.Namespace(weights="",
@@ -3513,13 +3782,16 @@ def ft_rn101(card):
     with torch.no_grad():
         losses.append(clip_contrastive_loss(tuner.state.params, cfg, images, toks)[0].item())
     counts = launches.launch_counts()
-    expect_launches("finetune RN101", counts, "plain", 0)
+    # every RN101 convolution and global pool product on conv_fp32: two
+    # forwards under autograd, one without
+    expect_launches("finetune RN101", counts, "plain", 0, rn32_forwards=3,
+                    rn32_launches=3 + 3 * sum(cfg.vision_layers) + 4 + POOL_PRODUCTS["global"])
     log(f"[finetune:rn101] RN101 fp32 ({cfg.vision_layers} bottlenecks), batch {RN101_BATCH}: "
         f"losses {[round(v, 6) for v in losses]} (before step 1, before step 2, after), step ms "
-        f"{[round(t, 1) for t in times]} on {card}")
+        f"{[round(t, 1) for t in times]}; launches {counts} on {card}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError("finetune RN101: the loss is not finite or did not fall")
-    return dict(losses=losses, ms=times)
+    return dict(losses=losses, ms=times, counts=counts)
 
 
 def phase_finetune(card, fa):
@@ -3550,7 +3822,8 @@ def phase_finetune(card, fa):
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[phase9] {time.perf_counter() - t0:.1f} s in all: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
-    counts = {k: res["routes"][0][k] + pair_counts[k] for k in pair_counts}
+    counts = {k: res["routes"][0][k] + pair_counts[k] + res["rn101"]["counts"][k]
+              for k in pair_counts}
     return counts, res
 
 
@@ -3974,7 +4247,7 @@ def main() -> int:
     total, bank_counts, score_counts, _, vit = phase_main_paths(card, inputs)
     total_attn, fp32_bank_counts, counts_a, counts_b = phase_unfused_paths(card, inputs)
     torch.cuda.empty_cache()
-    total_rn, rn_bank_counts, _, rn, rn_conv = phase_rn50(card, inputs)
+    total_rn, rn_bank_counts, _, rn, rn_conv, rn_conv32 = phase_rn50(card, inputs)
     for k, n in total_rn.items():
         total[k] = total.get(k, 0) + n
     # phase 7 runs on phases 3 and 5's engines, which are freed before phase 6
@@ -4059,12 +4332,37 @@ def main() -> int:
         "launches": total["conv_bf16"], "max_abs_err": t["max_abs_err"],
         **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shape": f"RN50 trunk: its {RN50_CONVS} convolutions, summed, at {N_IMAGES * 305} "
-                 "crops of 224x224 (the engine's own crops)",
+                 "crops of 224x224 (the engine's own crops), the epilogue off",
         "library": "cuDNN bf16 (F.conv2d in bf16, resnet.conv2d_native)",
+        "fused_ms": t["fused_ms"], "fused_library_ms": t["fused_library_ms"],
+        "fused": "the 55 resnet.conv_bn calls with batch norm (+ residual) (+ ReLU) in the "
+                 "epilogue; library: cuDNN bf16 + the unfused chain",
         "exact_share": t["exact"],
-        "trunk_ms": rn_conv["trunk_ms"], "trunk_before_ms": rn_conv["trunk_before_ms"],
+        "trunk_ms": rn_conv["trunk_ms"], "batch_ms": rn_conv["batch_ms"],
+        "trunk_before_ms": rn_conv["trunk_before_ms"],
         "path": "RN50 TEST.PREC auto (bf16): the image tower, every convolution",
         "launches_scoring": rn_conv["counts"]["conv_bf16"], "launches_phase7": total7["conv_bf16"],
+    })
+    t = rn_conv32["totals"]
+    launches32 = {"scoring": rn_conv32["counts"]["conv_fp32"],
+                  **{path: flow[path]["conv_fp32"] for path in ("validate", "zeroshot")},
+                  "finetune_rn101": ft_counts["conv_fp32"]}
+    line["kernels"].append({
+        "name": "conv_fp32", "route": "cuda", "source": "leclip_tpu_torch/csrc/conv_fp32.cu",
+        "replaces": "XLA conv (leclip_tpu/models/resnet.py:30), no Pallas kernel",
+        "launches": sum(launches32.values()), "max_abs_err": t["max_abs_err"],
+        **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": f"RN50 trunk: its {RN50_CONVS} convolutions, summed, at {N_IMAGES * 305} "
+                 "crops of 224x224 (the fp32 engine's own crops)",
+        "library": "cuDNN fp32, TF32 off (F.conv2d, resnet.conv2d_native)",
+        "worst_of_tolerance": t["worst"], "exact_share": t["exact"],
+        "products": t["products"],
+        "trunk_ms": rn_conv32["trunk_ms"], "batch_ms": rn_conv32["batch_ms"],
+        "trunk_before_ms": rn_conv32["trunk_before_ms"],
+        "path": "RN50 TEST.PREC fp32, validate, zero-shot RN50, RN101 fine-tuning: every "
+                f"convolution and pool product ({RN50_FP32} a dense RN50 forward: "
+                f"{RN50_CONVS} convolutions, {POOL_PRODUCTS['dense']} products)",
+        **{f"launches_{k}": v for k, v in launches32.items()},
     })
     print(card, flush=True)
     print(json.dumps(line), flush=True)

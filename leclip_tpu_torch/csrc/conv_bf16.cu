@@ -33,19 +33,26 @@
 // where Cout >= 256, 128, or 64 where Cout <= 64), row-major, so
 // neighbouring blocks share their A rows in L2. Three warpgroups, the
 // registers split 56 / 224 between producer and consumers (setmaxnreg):
-//   - a producer warpgroup gathers the 128 x 64 A tile of each K step by
+//   - a producer warpgroup fills a ring of 128-byte-swizzled stages (four,
+//     three at BN = 256) with the 128 x 64 A tile of each K step, gathered by
 //     cp.async from L2 (8 threads a row, 16 bytes each, zero-filled out of
-//     the image or past K; through L1 the 3x3 convolutions ran slower) into
-//     a ring of 128-byte-swizzled stages (four, three at BN = 256), and one of its
-//     threads loads the BN x 64 weight tile by TMA into the same stage. Each
-//     thread fences its copies into the async proxy and arrives on the
-//     stage's "full" barrier STAGES - 2 steps later, with that many steps of
-//     gathers in flight behind it;
+//     the image or past K; through L1 the 3x3 convolutions ran slower), and
+//     one of its threads loads the BN x 64 weight tile by TMA into the same
+//     stage. Each thread fences its copies into the async proxy and arrives
+//     on the stage's "full" barrier STAGES - 2 steps later, with that many
+//     steps of gathers in flight behind it. (A halo of input rows loaded once
+//     a tile into shared memory, to read each pixel once instead of once a
+//     tap, gave the same bits no faster on RN50's 3x3 convolutions: PERF.md.)
 //   - two consumer warpgroups, 64 rows each, run wgmma straight from the
 //     stages (both operands K-major) into fp32 registers, release each stage
 //     by its "empty" barrier, round to bf16 once into a staged tile in shared
 //     memory and store it as coalesced 16-byte row chunks, while the producer
-//     already gathers the next tile.
+//     already fills the next tile. The epilogue can fuse the trunk's chain
+//     after a convolution, with PyTorch's bf16 rounding at every step (each
+//     step in fp32 of the bf16 values, rounded to nearest even):
+//       y = bf16(acc); y = bf16(y * scale); y = bf16(y + offset)   batch norm
+//       [y = bf16(y + residual)]  [y = max(y, 0)]
+//     which equals models/resnet's unfused chain bit for bit.
 // Cin % 8 == 0, Cout % 8 == 0, 16-byte-aligned pointers; any batch.
 #include "gemm_sm90.cuh"
 
@@ -78,8 +85,12 @@ struct ConvSmem {  // every array starts on a 1024-byte boundary (the swizzle's 
 };
 
 struct ConvArgs {
-  const bf16* x;  // [b, h, w, cin]
-  bf16* out;      // [b, ho, wo, cout]
+  const bf16* x;         // [b, h, w, cin]
+  bf16* out;             // [b, ho, wo, cout]
+  const bf16* scale;     // [cout] batch norm's multiply, or null: no epilogue chain
+  const bf16* offset;    // [cout] its add
+  const bf16* residual;  // [b, ho, wo, cout] added after the batch norm, or null
+  int relu;
   int h, w, cin, ho, wo, cout, kw, stride, pad_top, pad_left, k, m;
 };
 
@@ -150,6 +161,20 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+__device__ __forceinline__ __nv_bfloat162 bf2_mul(__nv_bfloat162 y, __nv_bfloat162 s) {
+  const float2 yf = __bfloat1622float2(y), sf = __bfloat1622float2(s);
+  return __floats2bfloat162_rn(yf.x * sf.x, yf.y * sf.y);
+}
+__device__ __forceinline__ __nv_bfloat162 bf2_add(__nv_bfloat162 y, __nv_bfloat162 o) {
+  const float2 yf = __bfloat1622float2(y), of = __bfloat1622float2(o);
+  return __floats2bfloat162_rn(yf.x + of.x, yf.y + of.y);
+}
+__device__ __forceinline__ __nv_bfloat162 bf2_relu(__nv_bfloat162 y) {
+  const float2 yf = __bfloat1622float2(y);
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  return __halves2bfloat162(yf.x > 0.f ? y.x : zero, yf.y > 0.f ? y.y : zero);
+}
+
 template <int BN>
 __global__ void __launch_bounds__(CV_THREADS, 1)
 conv_bf16_kernel(const __grid_constant__ CUtensorMap tm_w, const ConvArgs a) {
@@ -173,7 +198,7 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap tm_w, const ConvArgs a) {
   __syncthreads();
 
   if (wg == CV_CONSUMERS) {
-    // ---------------- producer: im2col gather of A by cp.async, W by TMA
+    // ---------------- producer: A by the gather, W by TMA
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     const int pt = threadIdx.x % 128;
     const int q = pt % 8;      // this thread's 16-byte chunk of every 64-k row
@@ -243,7 +268,8 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap tm_w, const ConvArgs a) {
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     int it = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int row0 = tile / n_n * CV_BM, col0 = tile % n_n * BN;
+      const int col0 = tile % n_n * BN;
+      const int row0 = tile / n_n * CV_BM, rows = min(CV_BM, a.m - row0);
       int prev = 0;
       fence_regs(acc);
       for (int kt = 0; kt < n_k; ++kt, ++it) {
@@ -268,28 +294,52 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap tm_w, const ConvArgs a) {
 
       // accumulator layout: warp w of the group holds rows 16w.., lane (g, tq)
       // rows g and g+8, columns 8j + 2tq, +1 of every 8-column group j. The
-      // group rounds its 64 x BN tile into shared memory, then stores it as
-      // 16-byte row chunks (whole 32-byte sectors, coalesced).
+      // group rounds its 64 x BN tile (and applies the batch norm) into shared
+      // memory, then stores it as 16-byte row chunks (whole 32-byte sectors,
+      // coalesced), adding the residual and the ReLU on the way.
       constexpr int CS = BN + 8;  // the staged tile's row stride, in elements
       bf16* ct_tile = sm.c[wg];
       warpgroup_sync(wg);  // the previous tile's stores have read the stage
       const int g = lane / 4, tq = lane % 4;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
+        const int col = col0 + 8 * j + 2 * tq;
+        __nv_bfloat162 s2, o2;
+        if (a.scale != nullptr && col < a.cout) {
+          s2 = *reinterpret_cast<const __nv_bfloat162*>(a.scale + col);
+          o2 = *reinterpret_cast<const __nv_bfloat162*>(a.offset + col);
+        }
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h) {
+          __nv_bfloat162 y = __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          if (a.scale != nullptr && col < a.cout) y = bf2_add(bf2_mul(y, s2), o2);
           *reinterpret_cast<__nv_bfloat162*>(ct_tile + (warp * 16 + g + 8 * h) * CS + 8 * j +
-                                             2 * tq) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+                                             2 * tq) = y;
+        }
       }
       warpgroup_sync(wg);
-      const int r_base = row0 + wr0;
+      const int r_base = row0 + wr0, r_end = rows - wr0;
 #pragma unroll 4
       for (int q = ct; q < 64 * BN / 8; q += 128) {
         const int r = q / (BN / 8), cc = (q % (BN / 8)) * 8;
-        if (r_base + r < a.m && col0 + cc < a.cout)
-          *reinterpret_cast<uint4*>(a.out + (size_t)(r_base + r) * a.cout + col0 + cc) =
-              *reinterpret_cast<const uint4*>(ct_tile + r * CS + cc);
+        if (r < r_end && col0 + cc < a.cout) {
+          const size_t o = (size_t)(r_base + r) * a.cout + col0 + cc;
+          uint4 v = *reinterpret_cast<const uint4*>(ct_tile + r * CS + cc);
+          if (a.residual != nullptr || a.relu) {
+            __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(&v);
+            if (a.residual != nullptr) {
+              uint4 rv = *reinterpret_cast<const uint4*>(a.residual + o);
+              const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&rv);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) y[e] = bf2_add(y[e], r2[e]);
+            }
+            if (a.relu) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) y[e] = bf2_relu(y[e]);
+            }
+          }
+          *reinterpret_cast<uint4*>(a.out + o) = v;
+        }
       }
     }
   }
@@ -304,9 +354,9 @@ cudaError_t launch_conv_bf16(const CUtensorMap& tw, const ConvArgs& a, cudaStrea
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
   }
-  const int smem = (int)sizeof(ConvSmem<BN>) + 1024;  // + alignment slack
+  const size_t smem = sizeof(ConvSmem<BN>) + 1024;  // + the 1024-byte alignment
   cudaError_t err = cudaFuncSetAttribute(conv_bf16_kernel<BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int tiles = (a.m + CV_BM - 1) / CV_BM * ((a.cout + BN - 1) / BN);
   conv_bf16_kernel<BN><<<tiles < sms ? tiles : sms, CV_THREADS, smem, stream>>>(tw, a);
@@ -319,18 +369,26 @@ extern "C" {
 
 // x [b, h, w, cin] and out [b, ho, wo, cout] NHWC, w [cout, kh, kw, cin];
 // all bf16, contiguous, on the card. cin % 8 == 0, cout % 8 == 0; the
-// output grid and the top / left pads as "SAME" gives them. One launch on
-// `stream`; returns a cudaError_t.
-int leclip_conv_bf16(const void* x, const void* w, void* out, int b, int h, int wd, int cin,
-                     int ho, int wo, int cout, int kh, int kw, int stride, int pad_top,
+// output grid and the top / left pads as "SAME" gives them. scale / offset
+// ([cout]) fuse the batch norm, residual ([b, ho, wo, cout]) the add after
+// it, relu the ReLU (null / 0: off; residual and relu need the batch norm).
+// One launch on `stream`; returns a cudaError_t.
+int leclip_conv_bf16(const void* x, const void* w, void* out, const void* scale,
+                     const void* offset, const void* residual, int relu, int b, int h, int wd,
+                     int cin, int ho, int wo, int cout, int kh, int kw, int stride, int pad_top,
                      int pad_left, void* stream) {
   using namespace leclip;
   if (cin % 8 || cout % 8 || cin <= 0 || cout <= 0 || kh <= 0 || kw <= 0 || stride <= 0)
     return (int)cudaErrorInvalidValue;
+  if ((scale == nullptr) != (offset == nullptr) ||
+      (scale == nullptr && (residual != nullptr || relu)))
+    return (int)cudaErrorInvalidValue;
   const long long m = (long long)b * ho * wo;
   if (m == 0) return (int)cudaSuccess;
   if (m > 0x7fffffffLL || (long long)b * h * wd > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  ConvArgs a{static_cast<const bf16*>(x), static_cast<bf16*>(out), h, wd, cin, ho, wo, cout,
+  ConvArgs a{static_cast<const bf16*>(x), static_cast<bf16*>(out),
+             static_cast<const bf16*>(scale), static_cast<const bf16*>(offset),
+             static_cast<const bf16*>(residual), relu ? 1 : 0, h, wd, cin, ho, wo, cout,
              kw, stride, pad_top, pad_left, kh * kw * cin, (int)m};
   const int bn = cout >= 256 ? 256 : cout > 64 ? 128 : 64;  // from Cout alone
   CUtensorMap tw;

@@ -20,14 +20,37 @@ the reference, kept here so that the two packages agree); batch norm is the
 inference affine ``x * scale + offset`` with both computed in fp32 from the
 running statistics and cast to the activations' dtype, not folded into the
 conv weights; the pool's logits and softmax are fp32, and its probabilities
-are cast to v's dtype before the second product. An fp32 tower runs its
-convolutions and products in full fp32 (TF32 off inside the call, see
-device.no_tf32). A bf16 tower runs every convolution through the hand-written
-kernel of ops/conv_kernels.py (on the CPU, its plain version), which sums
-each output element in one order fixed by K, so that an image's features
-do not depend on the batch it is scored in (:func:`conv2d`); an fp32 tower's
-convolutions are cuDNN's, as the JAX package leaves them to XLA. The
-50-token pool is plain PyTorch, as in JAX."""
+are cast to v's dtype before the second product.
+
+Routes of the convolutions (:func:`conv2d`, :func:`conv_bn`), so that an
+image's features do not depend on the batch it is scored in, as the JAX
+function's do not:
+
+=========  ======  =================================================  ==========
+dtype      device  convolution                                        chain after
+=========  ======  =================================================  ==========
+bf16       CUDA    ``conv_bf16`` kernel, batch norm (+ residual) (+   fused
+                   ReLU) in its epilogue
+bf16       CUDA    the same kernel under autograd                     unfused
+bf16       CPU     ``conv_bf16_plain``: fp32 sum of the widened       unfused
+                   values, rounded once
+fp32       CUDA    ``conv_fp32`` kernel: one FMA chain over K a       unfused
+                   value, no TF32 (forward and under autograd)
+fp32       CPU     ``conv_fp32_plain``: the library's fp32            unfused
+                   convolution, TF32 off
+=========  ======  =================================================  ==========
+
+Both kernels (ops/conv_kernels.py) sum each output element in one order
+fixed by K = (kh, kw, cin); cuDNN's kernels, chosen by shape, give an image
+other values in a batch of another size or order. The unfused chain is
+PyTorch's bf16 (or fp32) ops in the order written here; the fused epilogue
+rounds at the same points and equals it bit for bit. The 50-token pool and
+the products of the head are plain PyTorch, as in JAX (full fp32 inside
+``no_tf32``), but for the pool's and the dense projection's fp32 products,
+which go through ``conv_kernels.matmul_fp32`` (:func:`_proj`): conv_fp32 as
+1x1 convolutions over their rows on the card, ``y @ w`` on the CPU. CPU tests against JAX:
+``JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_resnet.py``; card
+tests: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``."""
 
 from __future__ import annotations
 
@@ -40,7 +63,7 @@ import torch.nn.functional as F
 from ..device import no_tf32 as _no_tf32
 from ..device import tree_map
 from ..ops.attention import _matmul, _mm32, attention_core
-from ..ops.conv_kernels import conv_bf16, conv_library
+from ..ops.conv_kernels import bn_chain, conv_bf16, conv_fp32, conv_library, matmul_fp32
 from ..ops.resize_matmul import cubic_kernel
 
 _BN_EPS = 1e-5
@@ -71,34 +94,48 @@ def to_hwio(w: torch.Tensor) -> torch.Tensor:
 def conv2d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """x [B, H, W, Cin] → [B, H', W', Cout], padded "SAME" as the JAX conv
     pads (asymmetric pads, such as the stem's (0, 1), included); ``kernel``
-    [Cout, Cin, kh, kw], cast to x's dtype.
-
-    An image's output does not depend on the batch it is computed in, as
-    the JAX function's does not. A bf16 convolution runs
-    :func:`~leclip_tpu_torch.ops.conv_kernels.conv_bf16` at every shape: on
-    the card the kernel, which sums each output element over K = (kh, kw,
-    cin) in that order and rounds once to bf16 (JAX's single rounding
-    point); on the CPU its plain version, the fp32 sum of the widened values
-    rounded once. cuDNN's bf16 kernels, chosen by shape, give an image other
-    values in a batch of another size or order. An fp32 convolution is
-    cuDNN's (:func:`conv2d_native`), in full fp32 inside the tower's
-    ``no_tf32``."""
+    [Cout, Cin, kh, kw], cast to x's dtype. bf16 runs
+    :func:`~leclip_tpu_torch.ops.conv_kernels.conv_bf16`, fp32
+    :func:`~leclip_tpu_torch.ops.conv_kernels.conv_fp32` (each its kernel on
+    the card, its plain version on the CPU; the module's table), any other
+    dtype the library's convolution."""
     if x.dtype == torch.bfloat16:
         return conv_bf16(x, kernel, stride)
+    if x.dtype == torch.float32:
+        return conv_fp32(x, kernel, stride)
     return conv2d_native(x, kernel, stride)
 
 
-# conv2d by cuDNN in x's dtype for every shape: the fp32 route, and
-# chip_smoke.py's comparator for the bf16 one
+# conv2d by cuDNN in x's dtype for every shape: chip_smoke.py's comparator
+# for both kernels (in fp32 inside the tower's no_tf32)
 conv2d_native = conv_library
 
 
-def batch_norm(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """Inference batch norm: the running statistics as an affine, computed
-    in fp32 and cast to x's dtype."""
+def bn_affine(p: dict, dtype: torch.dtype):
+    """Inference batch norm as (scale, offset): the running statistics'
+    affine, computed in fp32 and cast to ``dtype``."""
     scale = p["scale"].float() * torch.rsqrt(p["var"].float() + _BN_EPS)
     offset = p["bias"].float() - p["mean"].float() * scale
-    return x * scale.to(x.dtype) + offset.to(x.dtype)
+    return scale.to(dtype), offset.to(dtype)
+
+
+def batch_norm(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Inference batch norm: x * scale + offset in x's dtype (:func:`bn_affine`)."""
+    return bn_chain(x, *bn_affine(p, x.dtype))
+
+
+def conv_bn(x: torch.Tensor, kernel: torch.Tensor, bn: dict, stride: int = 1,
+            residual: Optional[torch.Tensor] = None, relu: bool = True) -> torch.Tensor:
+    """A convolution with its batch norm, then ``+ residual`` and the ReLU
+    where asked: relu(bn(conv(x)) + residual). In bf16 the chain goes to
+    conv_bf16, whose kernel runs it in its epilogue on the card (one launch,
+    the same bits as the separate ops) and which runs it as separate ops
+    after the convolution on the CPU (its plain version) and under
+    autograd; in fp32 it runs as separate ops after :func:`conv2d`."""
+    scale, offset = bn_affine(bn, x.dtype)
+    if x.dtype == torch.bfloat16:
+        return conv_bf16(x, kernel, stride, scale, offset, residual, relu)
+    return bn_chain(conv2d(x, kernel, stride), scale, offset, residual, relu)
 
 
 def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -109,17 +146,16 @@ def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
 
 def bottleneck(x: torch.Tensor, p: dict, stride: int) -> torch.Tensor:
     """conv1x1-bn-relu → conv3x3-bn-relu → avgpool(stride) → conv1x1-bn,
-    with an avgpool + conv1x1 + bn shortcut when the shape changes."""
-    out = torch.relu(batch_norm(conv2d(x, p["conv1"]), p["bn1"]))
-    out = torch.relu(batch_norm(conv2d(out, p["conv2"]), p["bn2"]))
-    out = avg_pool(out, stride)
-    out = batch_norm(conv2d(out, p["conv3"]), p["bn3"])
+    plus the shortcut (an avgpool + conv1x1 + bn where the shape changes),
+    then relu; the shortcut first, since conv3's call adds it."""
     if "downsample" in p:
-        identity = avg_pool(x, stride)
-        identity = batch_norm(conv2d(identity, p["downsample"]["conv"]), p["downsample"]["bn"])
+        identity = conv_bn(avg_pool(x, stride), p["downsample"]["conv"], p["downsample"]["bn"],
+                           relu=False)
     else:
         identity = x
-    return torch.relu(out + identity)
+    out = conv_bn(x, p["conv1"], p["bn1"])
+    out = conv_bn(out, p["conv2"], p["bn2"])
+    return conv_bn(avg_pool(out, stride), p["conv3"], p["bn3"], residual=identity)
 
 
 def run_stage(x: torch.Tensor, stage: dict, stride: int) -> torch.Tensor:
@@ -167,7 +203,15 @@ def interpolate_pos_embedding(pos: torch.Tensor, h: int, w: int) -> torch.Tensor
 
 
 def _proj(y: torch.Tensor, p: dict) -> torch.Tensor:
-    return y @ p["kernel"].to(y.dtype) + p["bias"].to(y.dtype)
+    """y @ kernel + bias. An fp32 product goes through ``matmul_fp32``
+    (conv_fp32 as a 1x1 convolution over y's rows on the card, ``y @ w`` on
+    the CPU), each output one FMA chain over K: cuBLAS picks its fp32 kernel
+    by the number of rows, and an image's q/k/v/c and dense projections
+    moved with the batch's size (1, 2 and 5 images against 8, ~2e-5)."""
+    w = p["kernel"].to(y.dtype)
+    if y.dtype == torch.float32:
+        return matmul_fp32(y, w) + p["bias"].to(y.dtype)
+    return y @ w + p["bias"].to(y.dtype)
 
 
 def attention_pool(feat: torch.Tensor, p: dict, n_heads: int, if_pos: bool = True,
@@ -219,8 +263,7 @@ def resnet_features(x: torch.Tensor, params: dict) -> torch.Tensor:
     """Images [B, H, W, 3] → the layer4 map [B, H/32, W/32, width·32]."""
     with _no_tf32():
         for i in (1, 2, 3):
-            x = torch.relu(batch_norm(conv2d(x, params[f"conv{i}"], stride=2 if i == 1 else 1),
-                                      params[f"bn{i}"]))
+            x = conv_bn(x, params[f"conv{i}"], params[f"bn{i}"], stride=2 if i == 1 else 1)
         x = avg_pool(x, 2)
         for i, stride in zip((1, 2, 3, 4), (1, 2, 2, 2)):
             x = run_stage(x, params[f"layer{i}"], stride)

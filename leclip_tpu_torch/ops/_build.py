@@ -62,7 +62,10 @@ KERNELS: Dict[str, tuple] = {
         "leclip_flash_scratch_bytes": [_I, _I],
     }),
     "conv_bf16": ("conv_bf16.cu", {
-        "leclip_conv_bf16": [_P] * 3 + [_I] * 12 + [_P],
+        "leclip_conv_bf16": [_P] * 6 + [_I] * 13 + [_P],
+    }),
+    "conv_fp32": ("conv_fp32.cu", {
+        "leclip_conv_fp32": [_P] * 3 + [_I] * 12 + [_P],
     }),
 }
 

@@ -6,7 +6,7 @@ and reads them after."""
 from __future__ import annotations
 
 from .block_kernels import attn_block_bf16, mlp_bf16
-from .conv_kernels import conv_bf16
+from .conv_kernels import conv_bf16, conv_fp32
 from .flash_attention import flash_attention, resident_attention
 from .quant_kernels import attn_block_int8, ln_quant, mlp_int8
 
@@ -19,6 +19,7 @@ WRAPPERS = {
     "resident_attention": resident_attention,
     "flash_attention": flash_attention,
     "conv_bf16": conv_bf16,
+    "conv_fp32": conv_fp32,
 }
 
 

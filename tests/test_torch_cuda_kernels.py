@@ -684,7 +684,7 @@ def test_optimizer_step_on_card_matches_cpu(card, name):
         assert (a.cpu().double() - r.double()).abs().max().item() <= tol
 
 
-def _rn50_bf16(card, seed):
+def _rn50_bf16(card, seed, dtype=torch.bfloat16):
     from leclip_tpu_torch.device import cast_floating, tree_map
     from leclip_tpu_torch.models.clip import PRESETS
     from leclip_tpu_torch.models.resnet import init_resnet_params
@@ -693,7 +693,7 @@ def _rn50_bf16(card, seed):
     g = torch.Generator().manual_seed(seed)
     vis = _random_bn(init_resnet_params(g, cfg.vision_layers, cfg.embed_dim,
                                         cfg.image_resolution, cfg.vision_width, device="cpu"), g)
-    return tree_map(lambda t: t.to(card), cast_floating(vis, torch.bfloat16))
+    return tree_map(lambda t: t.to(card), cast_floating(vis, dtype))
 
 
 def test_rn50_bf16_trunk_ignores_the_batch_order_on_card(card):
@@ -740,6 +740,31 @@ def test_rn50_bf16_trunk_ignores_the_batch_size_on_card(card):
             assert torch.equal(got, full[idx]), (idx, (got.float() - full[idx].float()).abs()
                                                  .max().item())
     assert torch.isfinite(full.float()).all()
+
+
+def test_rn50_fp32_trunk_ignores_the_batch_size_on_card(card):
+    """RN50's fp32 trunk over images of 305 crops each: every image's map in
+    a batch of 1, 2 and 5 images, and of 5 padded to 8 by repeating the
+    fifth, bit for bit its map in the batch of 8, and in the batch reversed.
+    cuDNN's fp32 kernels, chosen by shape, fail this; conv_fp32 sums each
+    output element as one FMA chain over K in order, and launches once a
+    convolution."""
+    from leclip_tpu_torch.models.resnet import resnet_features
+    from leclip_tpu_torch.ops.conv_kernels import conv_fp32
+
+    vis = _rn50_bf16(card, 3, torch.float32)
+    x = torch.rand(8, 305, 224, 224, 3, generator=torch.Generator(device=card).manual_seed(6),
+                   device=card)
+    before = conv_fp32.launches
+    with torch.inference_mode():
+        full = resnet_features(x.flatten(0, 1), vis)
+        full = full.reshape((8, 305) + tuple(full.shape[1:]))
+        assert torch.isfinite(full).all()
+        for idx in ([0], [0, 1], [0, 1, 2, 3, 4], [0, 1, 2, 3, 4, 4, 4, 4], list(range(7, -1, -1))):
+            got = resnet_features(x[idx].flatten(0, 1), vis)
+            got = got.reshape((len(idx), 305) + tuple(got.shape[1:]))
+            assert torch.equal(got, full[idx]), (idx, (got - full[idx]).abs().max().item())
+    assert conv_fp32.launches == before + 55 * 6
 
 
 def _trunk_shapes():
@@ -839,6 +864,207 @@ def test_conv_bf16_gradient_on_card_matches_cpu(card):
         grads.append((xs.grad.cpu().float(), ws.grad.cpu().float()))
     for got, ref in zip(grads[1], grads[0]):
         assert (got - ref).abs().max().item() <= 2 * 2.0 ** -8 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("h,cin,cout,k,stride", _trunk_shapes())
+def test_conv_fp32_kernel_matches_plain(card, h, cin, cout, k, stride):
+    """conv_fp32 against conv_fp32_plain (the library's fp32 convolution,
+    TF32 off) at each distinct trunk shape (3 crops): within 2^-16 S, S =
+    sum |a||w| the element's own scale (fp32 sums of the same products in
+    another order; the worst case of a sequential sum is K 2^-24 S)."""
+    from leclip_tpu_torch.device import no_tf32
+    from leclip_tpu_torch.ops.conv_kernels import conv_fp32, conv_fp32_plain, conv_library
+
+    g = torch.Generator(device=card).manual_seed(h + cin + cout)
+    x = torch.randn(3, h, h, cin, generator=g, device=card)
+    w = (torch.randn(cout, k, k, cin, generator=g, device=card) * (k * k * cin) ** -0.5
+         ).permute(0, 3, 1, 2)
+    before = conv_fp32.launches
+    out = conv_fp32(x, w, stride)
+    assert conv_fp32.launches == before + 1
+    ref = conv_fp32_plain(x, w, stride)
+    with no_tf32():
+        scale = conv_library(x.abs(), w.abs(), stride)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == ref.shape == (
+        3, -(-h // stride), -(-h // stride), cout)
+    assert torch.isfinite(out).all()
+    d = (out - ref).abs()
+    assert (d <= 2.0 ** -16 * scale).all(), (d / scale.clamp(min=1e-30)).max().item()
+
+
+# (H, Cin, Cout, k, stride) of the 3x3 convolutions of RN50x4 (288² crops,
+# width 80) and RN50x16 (384², width 96) at their widest grids: the stem's
+# three and layer1's; the stride-2 stem reads rows of 289 and 385 pixels
+WIDE_SHAPES = {
+    "RN50x4 stem conv1": (288, 3, 40, 3, 2), "RN50x4 stem conv2": (144, 40, 40, 3, 1),
+    "RN50x4 stem conv3": (144, 40, 80, 3, 1), "RN50x4 layer1 3x3": (72, 80, 80, 3, 1),
+    "RN50x16 stem conv1": (384, 3, 48, 3, 2), "RN50x16 stem conv3": (192, 48, 96, 3, 1),
+    "RN50x16 layer1 3x3": (96, 96, 96, 3, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_SHAPES))
+def test_conv_kernels_take_the_wider_presets(card, case):
+    """Both kernels at the widest-grid convolutions of RN50x4 and RN50x16 (2
+    crops): conv_bf16 within 1 bf16 ulp of max(|plain|, 2^-8 S) of
+    conv_bf16_plain, conv_fp32 within 2^-16 S of conv_fp32_plain, one launch
+    each."""
+    from leclip_tpu_torch.device import no_tf32
+    from leclip_tpu_torch.ops import conv_kernels as ck
+
+    h, cin, cout, k, stride = WIDE_SHAPES[case]
+    g = torch.Generator(device=card).manual_seed(h + cout)
+    x = torch.randn(2, h, h, cin, generator=g, device=card)
+    w = (torch.randn(cout, k, k, cin, generator=g, device=card) * (k * k * cin) ** -0.5
+         ).permute(0, 3, 1, 2)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    before = ck.conv_bf16.launches, ck.conv_fp32.launches
+    out16, out32 = ck.conv_bf16(xb, wb, stride), ck.conv_fp32(x, w, stride)
+    assert (ck.conv_bf16.launches, ck.conv_fp32.launches) == (before[0] + 1, before[1] + 1)
+    ref16, ref32 = ck.conv_bf16_plain(xb, wb, stride), ck.conv_fp32_plain(x, w, stride)
+    with no_tf32():
+        s16 = ck.conv_library(xb.float().abs(), wb.float().abs(), stride)
+        s32 = ck.conv_library(x.abs(), w.abs(), stride)
+    torch.cuda.synchronize()
+    ho = -(-h // stride)
+    assert out16.shape == out32.shape == (2, ho, ho, cout)
+    d = (out16.float() - ref16.float()).abs()
+    mag = torch.maximum(ref16.float().abs(), 2.0 ** -8 * s16).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert (d <= ulp).all(), (d / ulp).max().item()
+    d = (out32 - ref32).abs()
+    assert torch.isfinite(out32).all()
+    assert (d <= 2.0 ** -16 * s32).all(), (d / s32.clamp(min=1e-30)).max().item()
+
+
+# (rows, K, N) of the RN50 head's fp32 products at 2 crops: the pool's k / v
+# (50 tokens a crop), its q and c (one), the dense projection's v and c
+HEAD_PRODUCTS = [(100, 2048, 2048), (2, 2048, 2048), (2, 2048, 1024), (98, 2048, 2048),
+                 (98, 2048, 1024)]
+
+
+@pytest.mark.parametrize("rows,k,n", HEAD_PRODUCTS)
+def test_matmul_fp32_matches_plain_on_card(card, rows, k, n):
+    """conv_kernels.matmul_fp32 (conv_fp32 as a 1x1 convolution over the
+    rows, one launch) against y @ w with TF32 off within 2^-16 S, S = |y| @
+    |w|, with TF32 switched on around the call (the kernel ignores it); the
+    rows of a 1-row call bitwise the same rows in a longer call."""
+    from leclip_tpu_torch.ops import conv_kernels as ck
+
+    g = torch.Generator(device=card).manual_seed(rows + n)
+    y = torch.randn(rows, k, generator=g, device=card)
+    w = torch.randn(k, n, generator=g, device=card) * k ** -0.5
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        before = ck.conv_fp32.launches
+        out = ck.matmul_fp32(y, w)
+        assert ck.conv_fp32.launches == before + 1
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    ref = ck.matmul_fp32_plain(y, w)
+    s = ck.matmul_fp32_plain(y.abs(), w.abs())
+    torch.cuda.synchronize()
+    assert out.shape == (rows, n) and torch.isfinite(out).all()
+    assert ((out - ref).abs() <= 2.0 ** -16 * s).all()
+    assert torch.equal(ck.matmul_fp32(y[:1], w), out[:1])
+
+
+# (shape (H, Cin, Cout, k, stride), residual, relu): the fused calls of the trunk
+FUSED_CASES = {
+    "bn + relu (3x3 at 56²)": ((56, 64, 64, 3, 1), False, True),
+    "bn + relu (3x3 at 14²)": ((14, 256, 256, 3, 1), False, True),
+    "bn (downsample)": ((28, 256, 512, 1, 1), False, False),
+    "bn + residual + relu (conv3)": ((7, 512, 2048, 1, 1), True, True),
+    "bn + residual + relu (layer1 conv3)": ((56, 64, 256, 1, 1), True, True),
+}
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_conv_bf16_fused_epilogue_matches_unfused_chain(card, case):
+    """conv_bf16 with the batch norm (and residual, ReLU) in its epilogue
+    equal, by torch.equal, to the unfused chain over its own output:
+    y * scale + offset, + residual, ReLU, each a bf16 PyTorch op."""
+    from leclip_tpu_torch.models.resnet import bn_affine
+    from leclip_tpu_torch.ops.conv_kernels import bn_chain, conv_bf16
+
+    (h, cin, cout, k, stride), residual, relu = FUSED_CASES[case]
+    g = torch.Generator(device=card).manual_seed(cout + cin)
+    x = torch.randn(3, h, h, cin, generator=g, device=card).to(torch.bfloat16)
+    w = (torch.randn(cout, k, k, cin, generator=g, device=card) * (k * k * cin) ** -0.5
+         ).to(torch.bfloat16).permute(0, 3, 1, 2)
+    bn = _random_bn({"scale": torch.zeros(cout), "bias": torch.zeros(cout),
+                     "mean": torch.zeros(cout), "var": torch.zeros(cout)},
+                    torch.Generator().manual_seed(cout))
+    scale, offset = bn_affine({n: t.to(card) for n, t in bn.items()}, torch.bfloat16)
+    res = (torch.randn(3, h, h, cout, generator=g, device=card).to(torch.bfloat16)
+           if residual else None)
+    fused = conv_bf16(x, w, stride, scale, offset, res, relu)
+    want = bn_chain(conv_bf16(x, w, stride), scale, offset, res, relu)
+    torch.cuda.synchronize()
+    assert fused.dtype == torch.bfloat16 and torch.isfinite(fused.float()).all()
+    assert torch.equal(fused, want), (fused.float() - want.float()).abs().max().item()
+    if relu:
+        assert (fused >= 0).all()
+
+
+def test_conv_fp32_failures_raise(card, monkeypatch):
+    """No hidden fallback: a build that fails and a launch that returns an
+    error both raise, and nothing is counted."""
+    from leclip_tpu_torch.ops import _build
+    from leclip_tpu_torch.ops.conv_kernels import conv_fp32
+
+    x = torch.zeros(1, 8, 8, 16, device=card)
+    w = torch.zeros(32, 16, 3, 3, device=card)
+    before = conv_fp32.launches
+
+    def no_build(name):
+        raise RuntimeError("kernel build failed: nvcc exited 1")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    with pytest.raises(RuntimeError, match="build failed"):
+        conv_fp32(x, w)
+
+    class _Refused:
+        @staticmethod
+        def leclip_conv_fp32(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(_build, "load", lambda name: _Refused())
+    with pytest.raises(RuntimeError, match="cudaError_t 9"):
+        conv_fp32(x, w)
+    assert conv_fp32.launches == before
+
+
+def test_conv_fp32_gradient_on_card_matches_cpu(card):
+    """Under autograd the forward launches conv_fp32 and the backward is the
+    library's convolution gradient with TF32 off, whatever the caller's
+    setting: the input and kernel gradients of an fp32 3x3 convolution on
+    the card within 1e-5 of max(1, max|ref|) of the same function on the
+    CPU (fp32 sums in another order; TF32 would leave ~1e-3)."""
+    from leclip_tpu_torch.ops.conv_kernels import conv_fp32
+
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 14, 14, 64, generator=g)
+    w = torch.randn(64, 64, 3, 3, generator=g) / 24
+    cot = torch.randn(2, 14, 14, 64, generator=g)
+    grads = []
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        for dev in ("cpu", card):
+            xs = x.to(dev).detach().requires_grad_()
+            ws = w.to(dev).detach().requires_grad_()
+            before = conv_fp32.launches
+            out = conv_fp32(xs, ws, 1)
+            assert conv_fp32.launches == before + (dev != "cpu")
+            out.backward(cot.to(dev))
+            grads.append((xs.grad.cpu(), ws.grad.cpu()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for got, ref in zip(grads[1], grads[0]):
+        assert (got - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
 
 
 def test_resident_gradient_at_the_finetune_shape(card):

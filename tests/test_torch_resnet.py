@@ -120,32 +120,130 @@ def test_bf16_trunk_matches_jax_and_ignores_the_batch_order(params):
 # batch of 8: the first image alone, the first five, and the first five
 # padded to eight by repeating the fifth, as the scoring service pads
 BATCHES = {"1 alone": [0], "5 alone": [0, 1, 2, 3, 4], "5 padded to 8": [0, 1, 2, 3, 4, 4, 4, 4]}
+# the two trunks' distance, of max(1, max|ref|): bf16, 8 bf16 epsilons (the
+# bound above); fp32, fp32 sums in another order through ~20 layers
+TRUNK_TOL = {"bf16": 8 * 2.0 ** -8, "fp32": 1e-5}
+# In fp32 neither CPU route is independent of the batch: XLA's CPU
+# convolution (JAX) and oneDNN's (the port's conv_fp32_plain, the library's
+# convolution) are chosen by shape, and an image alone reads up to 4.8e-7
+# (JAX) and 7.2e-7 (port) off its map in the batch of 8, about an fp32 ulp
+# of the map's largest values; held to 4 fp32 epsilons of max(1, max|ref|).
+# On the card conv_fp32 reads 0 (tests/test_torch_cuda_kernels.py)
+CPU_FP32_MOVE = 4 * 2.0 ** -23
 
 
-def test_bf16_trunk_ignores_the_batch_size_as_jax(params):
-    """Each image's bf16 trunk map at batch sizes 1, 5 and 8 (5 padded to 8)
-    is the same, bit for bit, as in a batch of 8, in the port (conv_bf16's
-    plain version on the CPU) as in JAX; the two trunks within 8 bf16
-    epsilons of max(1, max|ref|) of each other (the bound above)."""
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_bf16_trunk_ignores_the_batch_size_as_jax(params, dtype):
+    """Each image's trunk map at batch sizes 1, 5 and 8 (5 padded to 8) is
+    the same, bit for bit, as in a batch of 8, in the port (on the CPU the
+    plain version of conv_bf16) as in JAX in bf16; in fp32 the two CPU
+    routes move by about an fp32 ulp (CPU_FP32_MOVE); the two trunks within
+    TRUNK_TOL of max(1, max|ref|) of each other."""
     from leclip_tpu_torch.device import cast_floating
 
     x = _x((8, 64, 64, 3), 9)
-    jv = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), params["visual"])
-    tv = cast_floating(to_port(params["visual"]), torch.bfloat16)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32,
+                                                                         torch.float32)
+    jv = jax.tree.map(lambda a: jnp.asarray(a, jdt), params["visual"])
+    tv = cast_floating(to_port(params["visual"]), tdt)
 
     def jax_trunk(idx):
-        return np.asarray(jres.resnet_features(jnp.asarray(x[idx], jnp.bfloat16), jv)
+        return np.asarray(jres.resnet_features(jnp.asarray(x[idx], jdt), jv)
                           .astype(jnp.float32))
 
     def port_trunk(idx):
-        return tres.resnet_features(torch.tensor(x[idx]).to(torch.bfloat16), tv).float().numpy()
+        return tres.resnet_features(torch.tensor(x[idx]).to(tdt), tv).float().numpy()
 
     full = list(range(8))
     ref, out = jax_trunk(full), port_trunk(full)
-    assert np.abs(out - ref).max() <= 8 * 2.0 ** -8 * max(1.0, np.abs(ref).max())
+    scale = max(1.0, np.abs(ref).max())
+    err = np.abs(out - ref).max()
+    assert err <= TRUNK_TOL[dtype] * scale, err
     for label, idx in BATCHES.items():
-        np.testing.assert_array_equal(jax_trunk(idx), ref[idx], err_msg=f"JAX, {label}")
-        np.testing.assert_array_equal(port_trunk(idx), out[idx], err_msg=f"port, {label}")
+        for side, trunk, full_map in (("JAX", jax_trunk, ref), ("port", port_trunk, out)):
+            if dtype == "bf16":
+                np.testing.assert_array_equal(trunk(idx), full_map[idx],
+                                              err_msg=f"{side}, {label}")
+            else:
+                moved = np.abs(trunk(idx) - full_map[idx]).max()
+                assert moved <= CPU_FP32_MOVE * scale, (side, label, moved)
+
+
+def test_bf16_bottleneck_through_conv_bn_matches_the_unfused_chain_and_jax(params):
+    """A bf16 bottleneck with a strided downsample (RN-TEST's layer2) runs
+    each convolution with its batch norm through resnet.conv_bn: on the CPU
+    bit for bit the unfused chain (conv2d, batch_norm, relu, + identity,
+    relu), which the card's fused epilogue also equals; within the bf16
+    trunk's bound (8 bf16 epsilons of max(1, max|ref|)) of JAX's bf16
+    bottleneck."""
+    from leclip_tpu_torch.device import cast_floating
+
+    blk = params["visual"]["layer2"]["block0"]
+    jb = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), blk)
+    tb = cast_floating(to_port(blk), torch.bfloat16)
+    x = _x((2, 8, 8, np.shape(blk["conv1"])[2]), 21)
+    xt = torch.tensor(x).to(torch.bfloat16)
+    out = tres.bottleneck(xt, tb, 2)
+    bn = tres.batch_norm
+    ref = torch.relu(bn(tres.conv2d(xt, tb["conv1"]), tb["bn1"]))
+    ref = torch.relu(bn(tres.conv2d(ref, tb["conv2"]), tb["bn2"]))
+    ref = bn(tres.conv2d(tres.avg_pool(ref, 2), tb["conv3"]), tb["bn3"])
+    ident = bn(tres.conv2d(tres.avg_pool(xt, 2), tb["downsample"]["conv"]),
+               tb["downsample"]["bn"])
+    ref = torch.relu(ref + ident)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, ref)
+    jref = np.asarray(jres.bottleneck(jnp.asarray(x, jnp.bfloat16), jb, 2).astype(jnp.float32))
+    err = np.abs(out.float().numpy() - jref).max()
+    assert err <= 8 * 2.0 ** -8 * max(1.0, np.abs(jref).max()), err
+
+
+def test_conv_fp32_on_cpu_runs_its_plain_version():
+    """conv_fp32 on a CPU tensor is its plain version (the library's fp32
+    convolution, TF32 off, the stem's (0, 1) pads) and counts no launch,
+    also under autograd."""
+    from leclip_tpu_torch.ops import conv_kernels as ck
+
+    x = torch.tensor(_x((2, 16, 16, 3), 22))
+    w = tres.from_hwio(torch.tensor(_conv((3, 3, 3, 8), 23)))
+    before = ck.conv_fp32.launches
+    got = ck.conv_fp32(x, w, 2)
+    assert torch.equal(got, ck.conv_fp32_plain(x, w, 2))
+    assert torch.equal(got, tres.conv2d(x, w, 2))
+    xg = x.clone().requires_grad_()
+    ck.conv_fp32(xg, w, 2).sum().backward()
+    assert xg.grad is not None and ck.conv_fp32.launches == before
+
+
+def test_conv_fp32_refuses_what_it_does_not_take():
+    """conv_fp32 takes fp32 alone (a bf16 input raises), with every tensor
+    on x's device."""
+    from leclip_tpu_torch.ops.conv_kernels import conv_fp32
+
+    x = torch.zeros(1, 8, 8, 16)
+    w = torch.zeros(32, 16, 3, 3)
+    with pytest.raises(TypeError, match="float32"):
+        conv_fp32(x.to(torch.bfloat16), w)
+    with pytest.raises(ValueError, match="meta"):
+        conv_fp32(x, w.to("meta"))
+
+
+def test_matmul_fp32_on_cpu_is_the_plain_product():
+    """The head's fp32 products (models/resnet._proj through
+    conv_kernels.matmul_fp32) on CPU tensors are ``y @ w`` bit for bit and
+    count no launch; matmul_fp32 takes fp32 alone, with both tensors on one
+    device."""
+    from leclip_tpu_torch.ops import conv_kernels as ck
+
+    y = torch.tensor(_x((2, 5, 64), 24))
+    p = {"kernel": torch.tensor(_x((64, 32), 25)), "bias": torch.tensor(_x((32,), 26))}
+    before = ck.conv_fp32.launches
+    assert torch.equal(ck.matmul_fp32(y, p["kernel"]), y @ p["kernel"])
+    assert torch.equal(tres._proj(y, p), y @ p["kernel"] + p["bias"])
+    assert ck.conv_fp32.launches == before
+    with pytest.raises(TypeError, match="float32"):
+        ck.matmul_fp32(y.to(torch.bfloat16), p["kernel"])
+    with pytest.raises(ValueError, match="meta"):
+        ck.matmul_fp32(y, p["kernel"].to("meta"))
 
 
 @pytest.mark.parametrize("grid,k,stride,cin,pads", [
@@ -174,18 +272,26 @@ def test_bf16_small_grid_convs_run_in_fp32(grid, k, stride, cin, pads):
                        tres.conv2d_native(f32, w.float(), stride))
 
 
-@pytest.mark.parametrize("k,stride,hw", [(3, 1, (8, 8)), (3, 2, (16, 16)), (1, 1, (7, 7))])
-def test_bf16_conv_gradient_matches_jax(k, stride, hw):
-    """conv_bf16 under autograd (its torch.autograd.Function: the library's
-    convolution gradient) against jax.grad of leclip_tpu's conv2d on the
-    same bf16 values, for the input and the kernel: within 2 bf16 epsilons
-    of max(1, max|ref|) (each side a bf16 gradient convolution of the same
-    bf16 values, its fp32 sum in another order, rounded once)."""
-    from leclip_tpu_torch.ops.conv_kernels import conv_bf16
+# gradient tolerance, of max(1, max|ref|): bf16, 2 bf16 epsilons (each side a
+# bf16 gradient convolution of the same bf16 values, its fp32 sum in another
+# order, rounded once); fp32, fp32 sums in another order over K <= 144
+GRAD_TOL = {"bf16": 2 * 2.0 ** -8, "fp32": 1e-5}
 
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("k,stride,hw", [(3, 1, (8, 8)), (3, 2, (16, 16)), (1, 1, (7, 7))])
+def test_bf16_conv_gradient_matches_jax(k, stride, hw, dtype):
+    """conv_bf16 and conv_fp32 under autograd (their torch.autograd.Function:
+    the library's convolution gradient, TF32 off) against jax.grad of
+    leclip_tpu's conv2d on the same values, for the input and the kernel:
+    within GRAD_TOL of max(1, max|ref|)."""
+    from leclip_tpu_torch.ops.conv_kernels import conv_bf16, conv_fp32
+
+    jdt, tdt, conv = ((jnp.bfloat16, torch.bfloat16, conv_bf16) if dtype == "bf16"
+                      else (jnp.float32, torch.float32, conv_fp32))
     rng = np.random.default_rng(11)
-    x = jnp.asarray(rng.standard_normal((2,) + hw + (16,)), jnp.bfloat16)
-    w = jnp.asarray(_conv((k, k, 16, 8), 12), jnp.bfloat16)
+    x = jnp.asarray(rng.standard_normal((2,) + hw + (16,)), jdt)
+    w = jnp.asarray(_conv((k, k, 16, 8), 12), jdt)
     y_shape = jres.conv2d(x, w, stride=stride).shape
     g = jnp.asarray(rng.standard_normal(y_shape), jnp.bfloat16).astype(jnp.float32)
 
@@ -193,17 +299,17 @@ def test_bf16_conv_gradient_matches_jax(k, stride, hw):
         return jnp.sum(jres.conv2d(x_, w_, stride=stride).astype(jnp.float32) * g)
 
     dx, dw = jax.grad(loss, argnums=(0, 1))(x, w)
-    xt = torch.tensor(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16).requires_grad_()
+    xt = torch.tensor(np.asarray(x.astype(jnp.float32))).to(tdt).requires_grad_()
     wt = tres.from_hwio(torch.tensor(np.asarray(w.astype(jnp.float32)))).to(
-        torch.bfloat16).requires_grad_()
-    out = conv_bf16(xt, wt, stride)
-    assert out.grad_fn is not None and out.dtype == torch.bfloat16
+        tdt).requires_grad_()
+    out = conv(xt, wt, stride)
+    assert out.grad_fn is not None and out.dtype == tdt
     (out.float() * torch.tensor(np.asarray(g))).sum().backward()
     for got, ref in ((xt.grad, dx), (tres.to_hwio(wt.grad), dw)):
         ref = np.asarray(ref.astype(jnp.float32))
-        assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape
+        assert got.dtype == tdt and tuple(got.shape) == ref.shape
         err = np.abs(got.float().numpy() - ref).max()
-        assert err <= 2 * 2.0 ** -8 * max(1.0, np.abs(ref).max()), err
+        assert err <= GRAD_TOL[dtype] * max(1.0, np.abs(ref).max()), err
 
 
 @pytest.mark.parametrize("global_only", [True, False])
