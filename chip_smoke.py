@@ -11,7 +11,8 @@ Phases (any failure exits non-zero and prints no result line):
      IMMA) and UTMALDG (TMA load) instructions that show it, in
      flash_attention's the HMMA (mma.sync) of its bf16 tensor-core path,
      in conv_bf16's HGMMA, UTMALDG and LDGSTS (its cp.async loads), and in
-     conv_fp32's FFMA with no tensor-core product (HMMA, HGMMA: no TF32);
+     conv_fp32's FFMA and LDGSTS with no tensor-core product (HMMA, HGMMA:
+     no TF32);
   2. kernels: each of the seven kernels of the ViT and text paths
      (attn_block_bf16, mlp_bf16, ln_quant, attn_block_int8, mlp_int8,
      resident_attention, flash_attention; the eighth and ninth, conv_bf16
@@ -57,16 +58,19 @@ Phases (any failure exits non-zero and prints no result line):
      (and bitwise itself with the tower's own no_tf32 guard lifted); at each
      of the 55 trunk calls on the engines' own 610 crops: conv_bf16 (the
      epilogue off) against conv_bf16_plain within 1 bf16 ulp of
-     max(|plain|, 2^-8 sum|a||w|), the fused call equal to the unfused chain
-     (torch.equal); conv_fp32 against conv_fp32_plain within 2^-16
-     sum|a||w|, and at the head's 6 fp32 products (conv_fp32 as 1x1
-     convolutions) against y @ w with TF32 off within the same bound; each
-     timed beside its plain version and cuDNN in its dtype (bf16: also the
-     fused calls against cuDNN bf16 + the unfused chain; fp32: the products
-     beside cuBLAS); each precision's batch split into stages as in phase 3 on its
-     kernel, then bf16 on conv_bf16 with the chain unfused, on cuDNN bf16
-     throughout and on the earlier grid rule's route (the 7x7-grid 3x3 convolutions in
-     fp32), fp32 on cuDNN fp32;
+     max(|plain|, 2^-8 sum|a||w|); conv_fp32 (the epilogue off) against
+     conv_fp32_plain within 2^-16 sum|a||w|; in both dtypes the fused call
+     (models/resnet.conv_bn: batch norm, residual, ReLU in the epilogue)
+     equal to the unfused chain over the bare kernel's output (torch.equal);
+     at the head's 6 fp32 products (conv_fp32 as 1x1 convolutions) against
+     y @ w with TF32 off within the same bound, and with the bias in the
+     epilogue equal to the product + bias; each timed beside its plain
+     version and cuDNN in its dtype, the fused calls against cuDNN + the
+     unfused chain, the products (bare and with the bias) beside cuBLAS's;
+     conv_fp32's tile witness (a convolution and a product at two batch
+     sizes whose tiles differ: the shared crops bit for bit the same); each
+     precision's batch split into stages as in phase 3 on its kernel, then
+     on its kernel with the chain unfused and on cuDNN throughout;
   6. the caption-distillation trainer that all 19 recipes run, at RN50's
      text width (12x512, seeded random fp32 weights) on 8,192 synthetic
      captions with token-decided labels over the 80 COCO classes, the ema
@@ -113,8 +117,8 @@ Phases (any failure exits non-zero and prints no result line):
      the dense projection, alone on its input), each over batches of 1, 2
      and 5 images, 5 padded to 8 and the 8 reversed against the same images
      in the batch of 8, for each engine on its routes side by side: bf16 on
-     cuDNN bf16, the grid rule's route and conv_bf16; fp32 on cuDNN fp32 and
-     conv_fp32; the port's route must read 0 everywhere; and one line on
+     cuDNN bf16 and conv_bf16; fp32 on cuDNN fp32 and conv_fp32; the port's
+     route must read 0 everywhere; and one line on
      whether the native JPEG decoder's toolchain (g++, jpeglib.h, libjpeg)
      exists.
   8. after phase 6, on its fp32 trainer: the native JPEG decoder (what the
@@ -1133,29 +1137,15 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -126))) - 7)
 
 
-def conv_exact_grid(x, kernel, stride=1):
-    """The bf16 trunk's earlier route by grid size (a witness comparator): cuDNN
-    in bf16, except 3x3 convolutions over at most 7x7 positions, which ran as
-    the fp32 sum of the widened values rounded once."""
-    from leclip_tpu_torch.models import resnet
-    from leclip_tpu_torch.ops.conv_kernels import conv_bf16_plain
-
-    if kernel.shape[-1] > 1 and x.shape[1] * x.shape[2] <= 7 * 7:
-        return conv_bf16_plain(x, kernel, stride)
-    return resnet.conv2d_native(x, kernel, stride)
-
-
 def conv_routes(dtype=torch.bfloat16):
     """{route: conv2d function} for the RN50 batch witnesses of a tower in
     ``dtype``: cuDNN in that dtype for every shape (fp32 inside the tower's
-    no_tf32), the grid rule's bf16 route, and the port's conv2d (its kernel; in bf16
-    with the batch norm and the rest of the chain in its epilogue)."""
+    no_tf32), and the port's conv2d (its kernel, with the batch norm and the
+    rest of the chain in its epilogue)."""
     from leclip_tpu_torch.models import resnet
 
-    if dtype == torch.float32:
-        return {"cuDNN fp32": resnet.conv2d_native, "conv_fp32": resnet.conv2d}
-    return {"cuDNN bf16": resnet.conv2d_native, "fp32 at <=7x7 grids": conv_exact_grid,
-            "conv_bf16": resnet.conv2d}
+    name = "fp32" if dtype == torch.float32 else "bf16"
+    return {f"cuDNN {name}": resnet.conv2d_native, PORT_ROUTE[dtype]: resnet.conv2d}
 
 
 def conv_bn_over(fn):
@@ -1182,8 +1172,8 @@ def conv_route(fn):
     """models/resnet.conv2d replaced by ``fn`` for the duration, conv_bn by
     the unfused chain over it and the head's products (_proj) by the
     library's (:func:`plain_proj`): the library route throughout. The
-    port's own conv2d keeps the port's conv_bn (fused in bf16 on the card)
-    and _proj (conv_fp32 for the fp32 products on the card)."""
+    port's own conv2d keeps the port's conv_bn (fused on the card) and _proj
+    (conv_fp32 for the fp32 products on the card, the bias fused)."""
     from leclip_tpu_torch.models import resnet
 
     saved = resnet.conv2d, resnet.conv_bn, resnet._proj
@@ -1235,17 +1225,21 @@ def trunk_conv_check(vis, flat, card, reps=3, time_it=True, heads=32):
     scale (the two round the same exact bf16 products and differ only in the
     order of an fp32 sum, whose error is a few fp32 ulps of S; where the
     products cancel, |plain| is far below S and its own ulp below that
-    error); the fused call (batch norm, residual, ReLU in the epilogue) equal
-    to the unfused chain over the kernel's output (torch.equal). fp32:
-    conv_fp32 against conv_fp32_plain within CONV32_TOL * S; then the head
-    (the global pool and the dense projection) over the trunk map with each
-    of its 6 fp32 products (models/resnet._proj) hooked: conv_fp32 as a 1x1
-    convolution (conv_kernels.matmul_fp32) against ``y @ w`` with TF32 off
-    within CONV32_TOL * S. Reports the share of elements exactly equal; with
+    error). fp32: conv_fp32 with the epilogue off against conv_fp32_plain
+    within CONV32_TOL * S. Both: the port's fused call (batch norm,
+    residual, ReLU in the epilogue) equal to the unfused chain over the bare
+    kernel's output (torch.equal). fp32, then the head (the global pool and
+    the dense projection) over the trunk map with each of its 6 fp32
+    products (models/resnet._proj) hooked: conv_fp32 as a 1x1 convolution
+    (conv_kernels.matmul_fp32) against ``y @ w`` with TF32 off within
+    CONV32_TOL * S, and with its bias in the epilogue equal to the product
+    + bias (torch.equal). Reports the share of elements exactly equal; with
     ``time_it``, times per call the kernel (epilogue off), its plain version
-    and cuDNN in the same dtype (conv2d_native, the library call), in bf16
-    the fused call and cuDNN bf16 followed by the unfused chain, in fp32 each
-    product and cuBLAS's. Returns {rows, totals, products}."""
+    and cuDNN in the same dtype (conv2d_native, the library call), the fused
+    call and cuDNN followed by the unfused chain, in fp32 each product bare
+    and with its bias beside cuBLAS's (+ the bias). Each call's bound is that
+    of the bare convolution, and of the fused one (its residual read too).
+    Returns {rows, totals, products}."""
     from leclip_tpu_torch.device import no_tf32
     from leclip_tpu_torch.models import resnet
     from leclip_tpu_torch.ops import conv_kernels as ck
@@ -1256,21 +1250,18 @@ def trunk_conv_check(vis, flat, card, reps=3, time_it=True, heads=32):
     rows = []
     port_conv_bn = resnet.conv_bn
 
+    bare, plain_fn = ((ck.conv_bf16, ck.conv_bf16_plain) if bf16
+                      else (ck.conv_fp32, ck.conv_fp32_plain))
+
     def recording(x, k, bn, stride=1, residual=None, relu=True):
         scale, offset = resnet.bn_affine(bn, dtype)
         with no_tf32():
             s_abs = ck.conv_library(x.float().abs(), k.float().abs(), stride)
         row = dict(name=conv_name(x, k, stride))
-        if bf16:
-            fused = port_conv_bn(x, k, bn, stride, residual, relu)
-            out = ck.conv_bf16(x, k, stride)
-            plain = ck.conv_bf16_plain(x, k, stride)
-            row["fused_equal"] = torch.equal(fused, ck.bn_chain(out, scale, offset, residual,
-                                                                relu))
-        else:
-            out = ck.conv_fp32(x, k, stride)
-            plain = ck.conv_fp32_plain(x, k, stride)
-            fused = ck.bn_chain(out, scale, offset, residual, relu)  # the port's fp32 chain
+        fused = port_conv_bn(x, k, bn, stride, residual, relu)
+        out = bare(x, k, stride)
+        plain = plain_fn(x, k, stride)
+        row["fused_equal"] = torch.equal(fused, ck.bn_chain(out, scale, offset, residual, relu))
         torch.cuda.synchronize()
         if not torch.isfinite(out.float()).all():
             raise AssertionError(f"{kernel}: non-finite output")
@@ -1285,29 +1276,28 @@ def trunk_conv_check(vis, flat, card, reps=3, time_it=True, heads=32):
             row["worst"] = 0.0 if not (d > 0).any() else (d / tol.clamp(min=1e-38)).max().item()
         row.update(exact=(d == 0).float().mean().item(), max_abs=d.max().item())
         del plain, p, d, tol, s_abs
-        flops, nbytes = conv_work(tuple(x.shape), tuple(k.shape), stride, 2 if bf16 else 4)
+        elem = 2 if bf16 else 4
+        flops, nbytes = conv_work(tuple(x.shape), tuple(k.shape), stride, elem)
         peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
         row["bound_ms"] = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
         row["bound_by"] = "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes"
+        fused_bytes = nbytes + (elem * residual.numel() if residual is not None else 0)
+        row["fused_bound_ms"] = max(flops / peak, fused_bytes / PEAK_BYTES) * 1e3
         if time_it:
             with no_tf32():
-                if bf16:
-                    row["ms"] = cuda_ms(lambda: ck.conv_bf16(x, k, stride), reps)
-                    row["plain_ms"] = cuda_ms(lambda: ck.conv_bf16_plain(x, k, stride), reps)
-                    row["fused_ms"] = cuda_ms(
-                        lambda: port_conv_bn(x, k, bn, stride, residual, relu), reps)
-                    row["fused_library_ms"] = cuda_ms(lambda: ck.bn_chain(
-                        resnet.conv2d_native(x, k, stride), scale, offset, residual, relu), reps)
-                else:
-                    row["ms"] = cuda_ms(lambda: ck.conv_fp32(x, k, stride), reps)
-                    row["plain_ms"] = cuda_ms(lambda: ck.conv_fp32_plain(x, k, stride), reps)
+                row["ms"] = cuda_ms(lambda: bare(x, k, stride), reps)
+                row["plain_ms"] = cuda_ms(lambda: plain_fn(x, k, stride), reps)
+                row["fused_ms"] = cuda_ms(
+                    lambda: port_conv_bn(x, k, bn, stride, residual, relu), reps)
+                row["fused_library_ms"] = cuda_ms(lambda: ck.bn_chain(
+                    resnet.conv2d_native(x, k, stride), scale, offset, residual, relu), reps)
                 row["library_ms"] = cuda_ms(lambda: resnet.conv2d_native(x, k, stride), reps)
         rows.append(row)
         if row["worst"] > 1:
             raise AssertionError(f"{kernel} disagrees with its plain version at {row['name']}: "
                                  f"{row['worst']:.3g} of its tolerance")
-        if bf16 and not row["fused_equal"]:
-            raise AssertionError(f"conv_bf16's fused epilogue differs from the unfused chain at "
+        if not row["fused_equal"]:
+            raise AssertionError(f"{kernel}'s fused epilogue differs from the unfused chain at "
                                  f"{row['name']}")
         del out
         return fused
@@ -1316,25 +1306,35 @@ def trunk_conv_check(vis, flat, card, reps=3, time_it=True, heads=32):
     port_proj = resnet._proj
 
     def product(y, p):
-        w = p["kernel"].to(y.dtype)
+        w, bias = p["kernel"].to(y.dtype), p["bias"].to(y.dtype)
         out = ck.matmul_fp32(y, w)
+        fused = ck.matmul_fp32(y, w, bias)
         plain = ck.matmul_fp32_plain(y, w)
         s_abs = ck.matmul_fp32_plain(y.abs(), w.abs())
         torch.cuda.synchronize()
         d = (out - plain).abs()
-        row = dict(name=f"product {y.shape[-1]}->{w.shape[1]} at {y.shape[:-1].numel()} rows",
+        rows_, (k_, n_) = y.shape[:-1].numel(), w.shape
+        flops, nbytes = 2.0 * rows_ * k_ * n_, 4.0 * (rows_ * k_ + k_ * n_ + rows_ * n_ + n_)
+        row = dict(name=f"product {k_}->{n_} at {rows_} rows",
                    worst=0.0 if not (d > 0).any()
                    else (d / (CONV32_TOL * s_abs).clamp(min=1e-38)).max().item(),
                    exact=(d == 0).float().mean().item(), max_abs=d.max().item(),
-                   finite=bool(torch.isfinite(out).all()))
+                   finite=bool(torch.isfinite(out).all()),
+                   fused_equal=torch.equal(fused, out + bias),
+                   bound_ms=max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3)
         if time_it:
             row["ms"] = cuda_ms(lambda: ck.matmul_fp32(y, w), reps)
             row["plain_ms"] = cuda_ms(lambda: ck.matmul_fp32_plain(y, w), reps)
+            row["fused_ms"] = cuda_ms(lambda: ck.matmul_fp32(y, w, bias), reps)
+            row["fused_library_ms"] = cuda_ms(lambda: ck.matmul_fp32_plain(y, w, bias), reps)
         products.append(row)
         if not row["finite"] or row["worst"] > 1:
             raise AssertionError(f"conv_fp32 disagrees with y @ w at the {row['name']}: "
                                  f"{row['worst']:.3g} of its tolerance")
-        del out, plain, s_abs, d
+        if not row["fused_equal"]:
+            raise AssertionError(f"conv_fp32's fused bias differs from the product + bias at the "
+                                 f"{row['name']}")
+        del out, fused, plain, s_abs, d
         return port_proj(y, p)
 
     with patched(resnet, "conv_bn", recording), torch.inference_mode():
@@ -1347,9 +1347,9 @@ def trunk_conv_check(vis, flat, card, reps=3, time_it=True, heads=32):
             raise AssertionError(f"the fp32 head ran {len(products)} products, expected "
                                  f"{POOL_PRODUCTS['dense']}")
     del feat
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms") if time_it else ("bound_ms",)
-    if time_it and bf16:
-        keys += ("fused_ms", "fused_library_ms")
+    keys = ("bound_ms", "fused_bound_ms")
+    if time_it:
+        keys += ("ms", "plain_ms", "library_ms", "fused_ms", "fused_library_ms")
     totals = {k: float(sum(r[k] for r in rows)) for k in keys}
     by = {b: sum(r["bound_ms"] for r in rows if r["bound_by"] == b)
           for b in ("bytes", "operations")}
@@ -1366,33 +1366,84 @@ def trunk_conv_check(vis, flat, card, reps=3, time_it=True, heads=32):
         f"the tolerance, max|d| {totals['max_abs_err']:.4g}; share exactly equal "
         f"{min(r['exact'] for r in rows):.6f}..{max(r['exact'] for r in rows):.6f}"
         + (f", within 1 ulp of |plain| itself {min(r['own_ulp'] for r in rows):.8f}.."
-           f"{max(r['own_ulp'] for r in rows):.8f}; fused epilogue equal to the unfused chain "
-           f"at all {len(rows)} calls" if bf16 else "") + f" on {card}")
+           f"{max(r['own_ulp'] for r in rows):.8f}" if bf16 else "")
+        + f"; fused epilogue equal to the unfused chain at all {len(rows)} calls on {card}")
     for r in rows:
         log(f"  {r['name']:>26}: worst {r['worst']:.3g}, exact {r['exact']:.6f}"
             + (f", own-ulp {r['own_ulp']:.8f}" if bf16 else "")
             + (f"; {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, cuDNN {r['library_ms']:.3f}, "
-               f"bound {r['bound_ms']:.3f} by {r['bound_by']})" if time_it else "")
-            + (f"; fused {r['fused_ms']:.3f} (cuDNN + unfused chain {r['fused_library_ms']:.3f})"
-               if time_it and bf16 else ""))
+               f"bound {r['bound_ms']:.3f} by {r['bound_by']}); fused {r['fused_ms']:.3f} "
+               f"(cuDNN + unfused chain {r['fused_library_ms']:.3f}, bound "
+               f"{r['fused_bound_ms']:.3f})" if time_it else ""))
     if time_it:
         log(f"[{kernel}] the trunk's convolutions in all: {totals['ms']:.3f} ms (plain "
             f"{totals['plain_ms']:.3f}, cuDNN {totals['library_ms']:.3f}, bound "
-            f"{totals['bound_ms']:.3f})"
-            + (f"; the fused calls {totals['fused_ms']:.3f} ms (cuDNN bf16 + the unfused chain "
-               f"{totals['fused_library_ms']:.3f})" if bf16 else "") + f" on {card}")
+            f"{totals['bound_ms']:.3f}); the fused calls {totals['fused_ms']:.3f} ms (cuDNN + "
+            f"the unfused chain {totals['fused_library_ms']:.3f}, bound "
+            f"{totals['fused_bound_ms']:.3f}) on {card}")
     for r in products:
         log(f"  {r['name']:>32}: conv_fp32 1x1 against y @ w (TF32 off; tolerance 2^-16 S, "
             f"S = |y| @ |w|): worst {r['worst']:.3g}, exact {r['exact']:.6f}, max|d| "
-            f"{r['max_abs']:.4g}" + (f"; {r['ms']:.3f} ms (cuBLAS fp32 {r['plain_ms']:.3f})"
-                                     if time_it else "") + f" on {card}")
+            f"{r['max_abs']:.4g}, with the bias fused equal to the product + bias"
+            + (f"; {r['ms']:.3f} ms (cuBLAS fp32 {r['plain_ms']:.3f}, bound {r['bound_ms']:.3f}); "
+               f"with the bias {r['fused_ms']:.3f} (cuBLAS + the bias {r['fused_library_ms']:.3f})"
+               if time_it else "") + f" on {card}")
     if products:
         totals["products"] = {"calls": len(products),
                               "worst": max(r["worst"] for r in products),
                               "max_abs_err": max(r["max_abs"] for r in products),
+                              "bound_ms": float(sum(r["bound_ms"] for r in products)),
                               **({k: float(sum(r[k] for r in products))
-                                  for k in ("ms", "plain_ms")} if time_it else {})}
+                                  for k in ("ms", "plain_ms", "fused_ms", "fused_library_ms")}
+                                 if time_it else {})}
     return dict(rows=rows, totals=totals, products=products)
+
+
+def conv_fp32_tile_witness(vis, crops, card):
+    """conv_fp32's tile follows M, and every tile sums an element in the same
+    order: three calls of the RN50 fp32 tower at ``crops`` crops and at a
+    few, whose tiles differ (layer1's 3x3 64->64 at 56x56 with its batch
+    norm, a residual and the ReLU; layer4's last 3x3 512->512 at 7x7 with
+    its batch norm and ReLU; the pool's v product 2048->2048 at 50 rows a
+    crop with its bias), each on seeded random inputs; the shared crops'
+    outputs must be bit for bit the same. Returns {call: {tiles, equal}}."""
+    from leclip_tpu_torch.device import tree_map
+    from leclip_tpu_torch.models import resnet
+    from leclip_tpu_torch.ops import conv_kernels as ck
+
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    l1, l4 = vis["layer1"]["block0"], tree_map(lambda t: t[-1], vis["layer4"]["rest"])
+    v = vis["attnpool"]["v_proj"]
+    # label: (an input's shape a crop, the output's, crops run alone, the call)
+    calls = {
+        "layer1 3x3 56x56x64->64 + bn + residual + relu": (
+            (56, 56, 64), (56, 56, 64), 3,
+            lambda x, r: resnet.conv_bn(x, l1["conv2"], l1["bn2"], 1, r, True)),
+        "layer4 3x3 7x7x512->512 + bn + relu": (
+            (7, 7, 512), (7, 7, 512), 1,
+            lambda x, r: resnet.conv_bn(x, l4["conv2"], l4["bn2"])),
+        "product 2048->2048 + bias, 50 rows a crop": (
+            (50, 2048), (50, 2048), 5, lambda y, r: ck.matmul_fp32(y, v["kernel"], v["bias"])),
+    }
+    out = {}
+    with torch.inference_mode():
+        for label, (shape, out_shape, few, fn) in calls.items():
+            x = torch.randn((crops,) + shape, generator=gen, device=DEVICE)
+            r = torch.randn((crops,) + out_shape, generator=gen, device=DEVICE)
+            full, part = fn(x, r), fn(x[:few], r[:few])
+            rows = math.prod(out_shape[:-1])
+            tiles = {n: ck.conv_fp32_tile(n * rows, out_shape[-1]) for n in (crops, few)}
+            torch.cuda.synchronize()
+            same = torch.equal(part, full[:few])
+            out[label] = {"tiles": {n: f"{t[0]}x{t[1]}" for n, t in tiles.items()},
+                          "equal": same}
+            log(f"[conv_fp32:tile] {label}: {crops} crops on tile {out[label]['tiles'][crops]}, "
+                f"the first {few} alone on {out[label]['tiles'][few]}: the shared crops bit for "
+                f"bit the same: {same} on {card}")
+            if tiles[crops] == tiles[few] or not same:
+                raise AssertionError(f"conv_fp32's tile witness failed at {label}: {out[label]}")
+            del x, r, full, part
+    return out
 
 
 def randomize_bn(tree, gen):
@@ -1540,11 +1591,12 @@ def phase_rn50(card, inputs):
     torch.cuda.empty_cache()
     conv32 = trunk_conv_check(out["fp32"]["engine"].clip_params["visual"], flats["fp32"], card,
                               heads=cfg.vision_heads)
+    conv32["tile_witness"] = conv_fp32_tile_witness(out["fp32"]["engine"].clip_params["visual"],
+                                                    flats["fp32"].shape[0], card)
     torch.cuda.empty_cache()
     # the batch split into stages on the port's routes, then on the routes it
-    # is compared with: bf16 — conv_bf16 with the chain unfused (the route
-    # before the fused epilogue), cuDNN bf16 throughout, the grid rule's
-    # route; fp32 — cuDNN fp32
+    # is compared with: its kernel with the chain unfused (the route before
+    # the fused epilogue), cuDNN throughout
     stages, before = {}, {"bf16": {}, "fp32": {}}
     trunk = STAGES[2]
     for prec in ("bf16", "fp32"):
@@ -1552,9 +1604,9 @@ def phase_rn50(card, inputs):
         port = PORT_ROUTE[eng.compute_dtype]
         stages[prec] = stage_split(f"rn50:{prec}", eng, images, card)
         routes = {r: fn for r, fn in conv_routes(eng.compute_dtype).items() if r != port}
-        if prec == "bf16":
-            from leclip_tpu_torch.ops.conv_kernels import conv_bf16
-            routes = {"conv_bf16 unfused": lambda x_, k_, s_=1: conv_bf16(x_, k_, s_), **routes}
+        from leclip_tpu_torch.ops import conv_kernels
+        bare = getattr(conv_kernels, port)
+        routes = {f"{port} unfused": lambda x_, k_, s_=1, f_=bare: f_(x_, k_, s_), **routes}
         for route, fn in routes.items():
             with conv_route(fn):
                 before[prec][route] = stage_split(f"rn50:{prec} {route}", eng, images, card)
@@ -1694,8 +1746,9 @@ SASS_KERNELS = {
     "flash_attention": (("HMMA",), ()),             # bf16 flash on the tensor cores (mma.sync)
     # wgmma on stages gathered by cp.async (LDGSTS), the weights by TMA
     "conv_bf16": (("HGMMA", "UTMALDG", "LDGSTS"), ()),
-    # fp32 FMA chains on the CUDA cores: no tensor-core (TF32) product
-    "conv_fp32": (("FFMA",), ("HMMA", "HGMMA")),
+    # fp32 FMA chains on the CUDA cores, stages filled by cp.async (LDGSTS):
+    # no tensor-core (TF32) product
+    "conv_fp32": (("FFMA", "LDGSTS"), ("HMMA", "HGMMA")),
 }
 SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "UTMASTG", "LDGSTS", "FFMA", "CALL")
 # (library, kernel): the most subroutine calls the kernel's SASS may hold.
@@ -2671,7 +2724,7 @@ def rn_witness_layers(vis, flat, card, heads=32):
     batch of WITNESS_VARIANTS and compared
     image for image with the same images in the full batch. The
     convolutions run by each route of conv_routes() for the dtype (cuDNN's
-    and the grid rule's routes unfused; the port's as the tower runs it), and
+    route unfused; the port's as the tower runs it), and
     so do the pool's and the dense projection's products (the port's _proj
     on its route, the library's product on the others, as conv_route runs
     them); pools and the per-head products are the tower's own, reported
@@ -4335,6 +4388,7 @@ def main() -> int:
                  "crops of 224x224 (the engine's own crops), the epilogue off",
         "library": "cuDNN bf16 (F.conv2d in bf16, resnet.conv2d_native)",
         "fused_ms": t["fused_ms"], "fused_library_ms": t["fused_library_ms"],
+        "fused_bound_ms": t["fused_bound_ms"],
         "fused": "the 55 resnet.conv_bn calls with batch norm (+ residual) (+ ReLU) in the "
                  "epilogue; library: cuDNN bf16 + the unfused chain",
         "exact_share": t["exact"],
@@ -4353,10 +4407,14 @@ def main() -> int:
         "launches": sum(launches32.values()), "max_abs_err": t["max_abs_err"],
         **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shape": f"RN50 trunk: its {RN50_CONVS} convolutions, summed, at {N_IMAGES * 305} "
-                 "crops of 224x224 (the fp32 engine's own crops)",
+                 "crops of 224x224 (the fp32 engine's own crops), the epilogue off",
         "library": "cuDNN fp32, TF32 off (F.conv2d, resnet.conv2d_native)",
+        "fused_ms": t["fused_ms"], "fused_library_ms": t["fused_library_ms"],
+        "fused_bound_ms": t["fused_bound_ms"],
+        "fused": "the 55 resnet.conv_bn calls with batch norm (+ residual) (+ ReLU) in the "
+                 "epilogue; library: cuDNN fp32 + the unfused chain",
         "worst_of_tolerance": t["worst"], "exact_share": t["exact"],
-        "products": t["products"],
+        "products": t["products"], "tile_witness": rn_conv32["tile_witness"],
         "trunk_ms": rn_conv32["trunk_ms"], "batch_ms": rn_conv32["batch_ms"],
         "trunk_before_ms": rn_conv32["trunk_before_ms"],
         "path": "RN50 TEST.PREC fp32, validate, zero-shot RN50, RN101 fine-tuning: every "

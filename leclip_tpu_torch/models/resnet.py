@@ -34,8 +34,10 @@ bf16       CUDA    ``conv_bf16`` kernel, batch norm (+ residual) (+   fused
 bf16       CUDA    the same kernel under autograd                     unfused
 bf16       CPU     ``conv_bf16_plain``: fp32 sum of the widened       unfused
                    values, rounded once
-fp32       CUDA    ``conv_fp32`` kernel: one FMA chain over K a       unfused
-                   value, no TF32 (forward and under autograd)
+fp32       CUDA    ``conv_fp32`` kernel: one FMA chain over K a       fused
+                   value, no TF32; batch norm (+ residual) (+ ReLU)
+                   in its epilogue
+fp32       CUDA    the same kernel under autograd                     unfused
 fp32       CPU     ``conv_fp32_plain``: the library's fp32            unfused
                    convolution, TF32 off
 =========  ======  =================================================  ==========
@@ -43,12 +45,13 @@ fp32       CPU     ``conv_fp32_plain``: the library's fp32            unfused
 Both kernels (ops/conv_kernels.py) sum each output element in one order
 fixed by K = (kh, kw, cin); cuDNN's kernels, chosen by shape, give an image
 other values in a batch of another size or order. The unfused chain is
-PyTorch's bf16 (or fp32) ops in the order written here; the fused epilogue
-rounds at the same points and equals it bit for bit. The 50-token pool and
-the products of the head are plain PyTorch, as in JAX (full fp32 inside
-``no_tf32``), but for the pool's and the dense projection's fp32 products,
-which go through ``conv_kernels.matmul_fp32`` (:func:`_proj`): conv_fp32 as
-1x1 convolutions over their rows on the card, ``y @ w`` on the CPU. CPU tests against JAX:
+PyTorch's bf16 (or fp32) ops in the order written here; each fused
+epilogue rounds at the same points and equals it bit for bit. The 50-token
+pool and the products of the head are plain PyTorch, as in JAX (full fp32
+inside ``no_tf32``), but for the pool's and the dense projection's fp32
+products, which go through ``conv_kernels.matmul_fp32`` (:func:`_proj`):
+conv_fp32 as 1x1 convolutions over their rows with the bias in its
+epilogue on the card, ``y @ w + bias`` on the CPU. CPU tests against JAX:
 ``JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_resnet.py``; card
 tests: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``."""
 
@@ -127,14 +130,17 @@ def batch_norm(x: torch.Tensor, p: dict) -> torch.Tensor:
 def conv_bn(x: torch.Tensor, kernel: torch.Tensor, bn: dict, stride: int = 1,
             residual: Optional[torch.Tensor] = None, relu: bool = True) -> torch.Tensor:
     """A convolution with its batch norm, then ``+ residual`` and the ReLU
-    where asked: relu(bn(conv(x)) + residual). In bf16 the chain goes to
-    conv_bf16, whose kernel runs it in its epilogue on the card (one launch,
-    the same bits as the separate ops) and which runs it as separate ops
-    after the convolution on the CPU (its plain version) and under
-    autograd; in fp32 it runs as separate ops after :func:`conv2d`."""
+    where asked: relu(bn(conv(x)) + residual). In bf16 and fp32 the chain
+    goes to conv_bf16 / conv_fp32, whose kernel runs it in its epilogue on
+    the card (one launch, the same bits as the separate ops) and which runs
+    it as separate ops after the convolution on the CPU (its plain version)
+    and under autograd; in another dtype it runs as separate ops after
+    :func:`conv2d`."""
     scale, offset = bn_affine(bn, x.dtype)
     if x.dtype == torch.bfloat16:
         return conv_bf16(x, kernel, stride, scale, offset, residual, relu)
+    if x.dtype == torch.float32:
+        return conv_fp32(x, kernel, stride, scale, offset, residual, relu)
     return bn_chain(conv2d(x, kernel, stride), scale, offset, residual, relu)
 
 
@@ -204,13 +210,14 @@ def interpolate_pos_embedding(pos: torch.Tensor, h: int, w: int) -> torch.Tensor
 
 def _proj(y: torch.Tensor, p: dict) -> torch.Tensor:
     """y @ kernel + bias. An fp32 product goes through ``matmul_fp32``
-    (conv_fp32 as a 1x1 convolution over y's rows on the card, ``y @ w`` on
-    the CPU), each output one FMA chain over K: cuBLAS picks its fp32 kernel
-    by the number of rows, and an image's q/k/v/c and dense projections
-    moved with the batch's size (1, 2 and 5 images against 8, ~2e-5)."""
+    (conv_fp32 as a 1x1 convolution over y's rows with the bias in its
+    epilogue on the card, ``y @ w + bias`` on the CPU), each output one FMA
+    chain over K: cuBLAS picks its fp32 kernel by the number of rows, and an
+    image's q/k/v/c and dense projections moved with the batch's size (1, 2
+    and 5 images against 8, ~2e-5)."""
     w = p["kernel"].to(y.dtype)
     if y.dtype == torch.float32:
-        return matmul_fp32(y, w) + p["bias"].to(y.dtype)
+        return matmul_fp32(y, w, p["bias"].to(y.dtype))
     return y @ w + p["bias"].to(y.dtype)
 
 

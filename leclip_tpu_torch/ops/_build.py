@@ -65,7 +65,8 @@ KERNELS: Dict[str, tuple] = {
         "leclip_conv_bf16": [_P] * 6 + [_I] * 13 + [_P],
     }),
     "conv_fp32": ("conv_fp32.cu", {
-        "leclip_conv_fp32": [_P] * 3 + [_I] * 12 + [_P],
+        "leclip_conv_fp32": [_P] * 6 + [_I] * 13 + [_P],
+        "leclip_conv_fp32_tile": [_L, _I],
     }),
 }
 

@@ -13,9 +13,13 @@ versions.
   ops round, so that it equals the unfused chain bit for bit. CUDA source:
   ``csrc/conv_bf16.cu``.
 * ``conv_fp32`` — the same convolution in fp32 on the CUDA cores, each
-  output element one FMA chain over K in that order; no TF32. CUDA source:
-  ``csrc/conv_fp32.cu``. ``matmul_fp32`` runs it as a 1x1 convolution for
-  the attention pool's and the dense projection's fp32 products.
+  output element one FMA chain over K in that order; no TF32. With
+  ``scale`` / ``offset`` (fp32 [Cout]) the same chain in its epilogue, each
+  step rounded as PyTorch's fp32 ops round (no FMA contraction), so that it
+  equals the unfused chain bit for bit; an ``offset`` alone is a bias add.
+  CUDA source: ``csrc/conv_fp32.cu``. ``matmul_fp32`` runs it as a 1x1
+  convolution for the attention pool's and the dense projection's fp32
+  products, their bias in the epilogue.
 
 Neither replaces a Pallas kernel: the JAX package leaves its convolutions
 to XLA (leclip_tpu/models/resnet.py ``conv2d``), which gives an image the
@@ -29,9 +33,10 @@ of each source.
 :func:`conv_bf16_plain` and :func:`conv_fp32_plain` are the same functions
 in plain PyTorch: the fp32 convolution (TF32 off) of the widened bf16 values
 rounded once, then the unfused chain; and the fp32 convolution with TF32
-off. The CPU runs them, and chip_smoke.py holds the kernels to them on the
-card. A wrapper takes its plain version only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel or raises, never falling back. Under
+off, then the unfused chain. The CPU runs them, and chip_smoke.py holds the
+kernels to them on the card. A wrapper takes its plain version only for a
+tensor on the CPU; for a CUDA tensor it launches the kernel or raises, never
+falling back. Under
 autograd a wrapper is a ``torch.autograd.Function`` whose backward is the
 library's convolution gradient (``torch.nn.grad``), as JAX's is XLA's (the
 fused chain is not offered there: models/resnet.conv_bn runs it unfused).
@@ -77,12 +82,14 @@ def conv_library(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1) -> torc
     return y.permute(0, 2, 3, 1)
 
 
-def bn_chain(y: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+def bn_chain(y: torch.Tensor, scale: Optional[torch.Tensor], offset: torch.Tensor,
              residual: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
     """The trunk's chain after a convolution as PyTorch ops in y's dtype:
     ``y * scale + offset`` (models/resnet.batch_norm's two ops), then ``+
-    residual``, then the ReLU."""
-    y = y * scale.to(y.dtype) + offset.to(y.dtype)
+    residual``, then the ReLU; with no ``scale``, ``y + offset`` (a bias)."""
+    if scale is not None:
+        y = y * scale.to(y.dtype)
+    y = y + offset.to(y.dtype)
     if residual is not None:
         y = y + residual
     return torch.relu(y) if relu else y
@@ -99,11 +106,38 @@ def conv_bf16_plain(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
     return y if scale is None else bn_chain(y, scale, offset, residual, relu)
 
 
-def conv_fp32_plain(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def conv_fp32_plain(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+                    scale: Optional[torch.Tensor] = None, offset: Optional[torch.Tensor] = None,
+                    residual: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
     """conv_fp32's function: the fp32 convolution by the library with TF32
-    off (the route of every fp32 convolution before the kernel)."""
+    off (the route of every fp32 convolution before the kernel); with
+    ``scale`` or ``offset``, :func:`bn_chain` after it."""
     with no_tf32():
-        return conv_library(x, kernel.to(x.dtype), stride)
+        y = conv_library(x, kernel.to(x.dtype), stride)
+    return y if offset is None else bn_chain(y, scale, offset, residual, relu)
+
+
+def _check_chain(name: str, x: torch.Tensor, kernel: torch.Tensor, stride: int, scale, offset,
+                 residual, relu: bool, bias: bool) -> None:
+    """The chain's arguments, on every device: ``scale`` and ``offset`` [Cout]
+    together (``offset`` alone where ``bias``), ``residual`` and ``relu`` only
+    after them, ``residual`` in x's dtype and the output's shape."""
+    cout = kernel.shape[0]
+    if scale is None:
+        if residual is not None or relu:
+            raise ValueError(f"{name}: residual and relu come after the batch norm (scale)")
+        if offset is not None and not bias:
+            raise ValueError(f"{name}: offset comes with scale")
+    elif offset is None:
+        raise ValueError(f"{name}: scale comes with offset")
+    for label, t in (("scale", scale), ("offset", offset)):
+        if t is not None and tuple(t.shape) != (cout,):
+            raise ValueError(f"{name}: {label} must be [{cout}], got {tuple(t.shape)}")
+    if residual is not None:
+        shape = (x.shape[0], -(-x.shape[1] // stride), -(-x.shape[2] // stride), cout)
+        if tuple(residual.shape) != shape or residual.dtype != x.dtype:
+            raise ValueError(f"{name}: residual must be {x.dtype} {shape}, got "
+                             f"{residual.dtype} {tuple(residual.shape)}")
 
 
 def _prepare(x: torch.Tensor, kernel: torch.Tensor, stride: int, dtype: torch.dtype, align: int,
@@ -130,6 +164,18 @@ def _prepare(x: torch.Tensor, kernel: torch.Tensor, stride: int, dtype: torch.dt
     return x, wk, (ho, wo, top, left)
 
 
+def _chain_tensors(scale, offset, residual, dtype: torch.dtype):
+    """The chain's tensors as a kernel reads them: contiguous, ``scale`` and
+    ``offset`` in ``dtype`` (None where absent)."""
+    return (None if scale is None else scale.to(dtype).contiguous(),
+            None if offset is None else offset.to(dtype).contiguous(),
+            None if residual is None else residual.contiguous())
+
+
+def _ptrs(tensors):
+    return [0 if t is None else t.data_ptr() for t in tensors]
+
+
 def _launch(x: torch.Tensor, kernel: torch.Tensor, stride: int, scale=None, offset=None,
             residual=None, relu: bool = False) -> torch.Tensor:
     """One launch of csrc/conv_bf16.cu on x's device and current stream."""
@@ -142,42 +188,33 @@ def _launch(x: torch.Tensor, kernel: torch.Tensor, stride: int, scale=None, offs
             raise ValueError(f"conv_bf16: the fused epilogue takes Cout % 8 == 0, got {cout}")
         wk = F.pad(wk, (0, 0, 0, 0, 0, 0, 0, n_out - cout))
     out = torch.empty((b, ho, wo, n_out), dtype=torch.bfloat16, device=x.device)
-    ptrs = [0, 0, 0]
-    if scale is not None:
-        scale = scale.to(torch.bfloat16).contiguous()
-        offset = offset.to(torch.bfloat16).contiguous()
-        if scale.shape != (cout,) or offset.shape != (cout,):
-            raise ValueError(f"conv_bf16: scale / offset must be [{cout}]")
-        ptrs[:2] = scale.data_ptr(), offset.data_ptr()
-        if residual is not None:
-            if residual.shape != out.shape or residual.dtype != torch.bfloat16:
-                raise ValueError(f"conv_bf16: residual must be bf16 {tuple(out.shape)}, got "
-                                 f"{residual.dtype} {tuple(residual.shape)}")
-            residual = residual.contiguous()
-            ptrs[2] = residual.data_ptr()
-    elif residual is not None or relu:
-        raise ValueError("conv_bf16: residual and relu come after the batch norm (scale)")
+    chain = _chain_tensors(scale, offset, residual, torch.bfloat16)
     lib = _build.load("conv_bf16")
-    rc = lib.leclip_conv_bf16(x.data_ptr(), wk.data_ptr(), out.data_ptr(), *ptrs, int(relu), b,
-                              h, w, cin, ho, wo, n_out, kh, kernel.shape[-1], int(stride), top,
-                              left, _stream(x.device))
+    rc = lib.leclip_conv_bf16(x.data_ptr(), wk.data_ptr(), out.data_ptr(), *_ptrs(chain),
+                              int(relu), b, h, w, cin, ho, wo, n_out, kh, kernel.shape[-1],
+                              int(stride), top, left, _stream(x.device))
     _raise_on(rc, "conv_bf16")
     conv_bf16.launches += 1
     return out if n_out == cout else out[..., :cout].contiguous()
 
 
-def _launch_fp32(x: torch.Tensor, kernel: torch.Tensor, stride: int) -> torch.Tensor:
+def _launch_fp32(x: torch.Tensor, kernel: torch.Tensor, stride: int, scale=None, offset=None,
+                 residual=None, relu: bool = False) -> torch.Tensor:
     """One launch of csrc/conv_fp32.cu on x's device and current stream."""
     cout, _, kh, kw = kernel.shape
     x, wk, (ho, wo, top, left) = _prepare(x, kernel, stride, torch.float32, 4, "conv_fp32")
     b, h, w, cin = x.shape
     n_out = -(-cout // 4) * 4
     if n_out != cout:
+        if offset is not None:
+            raise ValueError(f"conv_fp32: the fused epilogue takes Cout % 4 == 0, got {cout}")
         wk = F.pad(wk, (0, 0, 0, 0, 0, 0, 0, n_out - cout))
     out = torch.empty((b, ho, wo, n_out), dtype=torch.float32, device=x.device)
+    chain = _chain_tensors(scale, offset, residual, torch.float32)
     lib = _build.load("conv_fp32")
-    rc = lib.leclip_conv_fp32(x.data_ptr(), wk.data_ptr(), out.data_ptr(), b, h, w, cin, ho, wo,
-                              n_out, kh, kw, int(stride), top, left, _stream(x.device))
+    rc = lib.leclip_conv_fp32(x.data_ptr(), wk.data_ptr(), out.data_ptr(), *_ptrs(chain),
+                              int(relu), b, h, w, cin, ho, wo, n_out, kh, kw, int(stride), top,
+                              left, _stream(x.device))
     _raise_on(rc, "conv_fp32")
     conv_fp32.launches += 1
     return out if n_out == cout else out[..., :cout].contiguous()
@@ -202,10 +239,10 @@ def _forward(x, kernel, stride, scale=None, offset=None, residual=None, relu=Fal
     return _launch(x, kernel, stride, scale, offset, residual, relu)
 
 
-def _forward_fp32(x, kernel, stride):
-    if _check("conv_fp32", x, kernel, torch.float32):
-        return conv_fp32_plain(x, kernel, stride)
-    return _launch_fp32(x, kernel, stride)
+def _forward_fp32(x, kernel, stride, scale=None, offset=None, residual=None, relu=False):
+    if _check("conv_fp32", x, kernel, torch.float32, scale, offset, residual):
+        return conv_fp32_plain(x, kernel, stride, scale, offset, residual, relu)
+    return _launch_fp32(x, kernel, stride, scale, offset, residual, relu)
 
 
 class _Conv(torch.autograd.Function):
@@ -249,37 +286,58 @@ def conv_bf16(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
     the batch norm (and ``residual``, ``relu``) in the kernel's epilogue.
     Differentiable where an input requires grad (the chain then runs as
     PyTorch ops after the convolution)."""
+    _check_chain("conv_bf16", x, kernel, stride, scale, offset, residual, relu, bias=False)
     if _grad_wanted(x, kernel, scale, offset, residual):
         y = _Conv.apply(x, kernel, stride, _forward)
         return y if scale is None else bn_chain(y, scale, offset, residual, relu)
     return _forward(x, kernel, stride, scale, offset, residual, relu)
 
 
-def conv_fp32(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def conv_fp32(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+              scale: Optional[torch.Tensor] = None, offset: Optional[torch.Tensor] = None,
+              residual: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
     """fp32 x [B, H, W, Cin] → [B, ceil(H/s), ceil(W/s), Cout], padded
     "SAME"; ``kernel`` [Cout, Cin, kh, kw], cast to fp32; full fp32
-    whatever the caller's TF32 setting. Differentiable where an input
-    requires grad."""
-    if _grad_wanted(x, kernel):
-        return _Conv.apply(x, kernel, stride, _forward_fp32)
-    return _forward_fp32(x, kernel, stride)
+    whatever the caller's TF32 setting. With ``scale`` / ``offset`` the
+    batch norm (and ``residual``, ``relu``) in the kernel's epilogue; an
+    ``offset`` alone is added as a bias. Differentiable where an input
+    requires grad (the chain then runs as PyTorch ops after the
+    convolution)."""
+    _check_chain("conv_fp32", x, kernel, stride, scale, offset, residual, relu, bias=True)
+    if _grad_wanted(x, kernel, scale, offset, residual):
+        y = _Conv.apply(x, kernel, stride, _forward_fp32)
+        return y if offset is None else bn_chain(y, scale, offset, residual, relu)
+    return _forward_fp32(x, kernel, stride, scale, offset, residual, relu)
 
 
-def matmul_fp32_plain(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """matmul_fp32's function: ``y @ w`` in fp32 with TF32 off."""
+def conv_fp32_tile(m: int, cout: int) -> Tuple[int, int]:
+    """(BM, BN): the block tile conv_fp32's kernel takes for ``m`` output
+    positions (B·Ho·Wo) and ``cout`` channels (csrc/conv_fp32.cu
+    conv_fp32_tile; every tile gives the same bits)."""
+    code = _build.load("conv_fp32").leclip_conv_fp32_tile(int(m), -(-int(cout) // 4) * 4)
+    return code >> 16, code & 0xFFFF
+
+
+def matmul_fp32_plain(y: torch.Tensor, w: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """matmul_fp32's function: ``y @ w`` in fp32 with TF32 off, then ``+
+    bias``."""
     with no_tf32():
-        return y @ w
+        out = y @ w
+    return out if bias is None else out + bias
 
 
-def matmul_fp32(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """fp32 y [..., K] @ w [K, N] → [..., N], each output one FMA chain over
-    K: on the card conv_fp32 as a 1x1 convolution over y's rows (a launch of
-    its kernel), whose sums do not depend on the number of rows, as cuBLAS's
-    split-K choices do; on the CPU :func:`matmul_fp32_plain`.
-    Differentiable where an input requires grad."""
-    if _check("matmul_fp32", y, w, torch.float32):
-        return matmul_fp32_plain(y, w)
-    rows = conv_fp32(y.reshape(-1, 1, 1, y.shape[-1]), w.t()[:, :, None, None])
+def matmul_fp32(y: torch.Tensor, w: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """fp32 y [..., K] @ w [K, N] (+ bias [N]) → [..., N], each output one
+    FMA chain over K: on the card conv_fp32 as a 1x1 convolution over y's
+    rows (a launch of its kernel, the bias added in its epilogue), whose
+    sums do not depend on the number of rows, as cuBLAS's split-K choices
+    do; on the CPU :func:`matmul_fp32_plain`. Differentiable where an input
+    requires grad."""
+    if _check("matmul_fp32", y, w, torch.float32, bias):
+        return matmul_fp32_plain(y, w, bias)
+    rows = conv_fp32(y.reshape(-1, 1, 1, y.shape[-1]), w.t()[:, :, None, None], offset=bias)
     return rows.reshape(y.shape[:-1] + (w.shape[1],))
 
 

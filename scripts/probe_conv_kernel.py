@@ -5,19 +5,21 @@ at 224², in bf16 and in fp32:
 
 1. every one of the trunk's 55 convolution-with-batch-norm calls against
    the kernel's plain version on a small batch (chip_smoke.trunk_conv_check,
-   no timing; in bf16 also the fused epilogue against the unfused chain, in
-   fp32 also the head's products against y @ w);
+   no timing; also the fused epilogue against the unfused chain, in fp32
+   also the head's products against y @ w, their fused bias against + bias);
 2. the batch witness by operation (chip_smoke.rn_witness_layers): 8 images
    of 305 crops, each convolution on each route of chip_smoke.conv_routes
-   (bf16: cuDNN bf16, the grid rule's route, conv_bf16; fp32: cuDNN fp32,
-   conv_fp32), each average pool and each product of the attention pool and
-   the dense projection, in batches of 1, 2 and 5 images, 5 padded to 8 and
-   the 8 reversed, against the same images in the batch of 8;
+   (cuDNN and the port's kernel), each average pool and each product of the
+   attention pool and the dense projection, in batches of 1, 2 and 5
+   images, 5 padded to 8 and the 8 reversed, against the same images in the
+   batch of 8;
 3. the 55 calls at 610 crops, checked and timed beside the plain version,
-   cuDNN in the same dtype and the bound (bf16: also the fused calls; fp32:
-   the head's products beside cuBLAS);
+   cuDNN in the same dtype and the bound, the fused calls beside cuDNN +
+   the unfused chain (fp32: the head's products beside cuBLAS, and
+   conv_fp32's tile witness, chip_smoke.conv_fp32_tile_witness);
 4. the whole trunk (models/resnet.resnet_features) at 610 crops on each
-   route, by CUDA events, on the same inputs.
+   route (the port's kernel fused and unfused, cuDNN), by CUDA events, on
+   the same inputs.
 
     python3 scripts/probe_conv_kernel.py [--no-witness] [--only bf16|fp32]
 
@@ -43,8 +45,7 @@ def main() -> int:
     from leclip_tpu_torch.device import cast_floating
     from leclip_tpu_torch.models import resnet
     from leclip_tpu_torch.models.clip import PRESETS
-    from leclip_tpu_torch.ops import _build
-    from leclip_tpu_torch.ops.conv_kernels import conv_bf16
+    from leclip_tpu_torch.ops import _build, conv_kernels
 
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -93,10 +94,13 @@ def main() -> int:
             torch.cuda.empty_cache()
         x = crops(smoke.N_IMAGES * 305, 3)
         out["main"] = smoke.trunk_conv_check(vis, x, card, heads=cfg.vision_heads)["totals"]
+        if prec == "fp32":
+            out["tile_witness"] = smoke.conv_fp32_tile_witness(vis, x.shape[0], card)
         torch.cuda.empty_cache()
         routes = dict(smoke.conv_routes(dtype))
-        if prec == "bf16":
-            routes["conv_bf16 unfused"] = lambda x_, k_, s_=1: conv_bf16(x_, k_, s_)
+        port = smoke.PORT_ROUTE[dtype]
+        bare = getattr(conv_kernels, port)
+        routes[f"{port} unfused"] = lambda x_, k_, s_=1: bare(x_, k_, s_)
         trunk = {}
         for route, fn in routes.items():
             with smoke.conv_route(fn), torch.inference_mode():

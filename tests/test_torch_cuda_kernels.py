@@ -1009,6 +1009,122 @@ def test_conv_bf16_fused_epilogue_matches_unfused_chain(card, case):
         assert (fused >= 0).all()
 
 
+# (shape (H, Cin, Cout, k, stride), residual, relu): conv_fp32's fused calls; a
+# stride-2 3x3, a 1x1 whose Cout (68) is no multiple of any tile's, and an M
+# tail (3 x 9² rows: no multiple of 64 or 128)
+FUSED32_CASES = {
+    "bn + relu (3x3/2 at 28², 64->128)": ((28, 64, 128, 3, 2), False, True),
+    "bn (1x1 at 14², Cout 68)": ((14, 64, 68, 1, 1), False, False),
+    "bn + residual + relu (1x1 at 14², Cout 68)": ((14, 64, 68, 1, 1), True, True),
+    "bn + residual (3x3 at 9², M tail)": ((9, 32, 256, 3, 1), True, False),
+    "bn + residual + relu (3x3 at 9², M tail, Cout 32)": ((9, 16, 32, 3, 1), True, True),
+    "bn + residual + relu (layer1 conv3, 1x1 at 56², 64->256)": ((56, 64, 256, 1, 1), True, True),
+}
+
+
+@pytest.mark.parametrize("case", list(FUSED32_CASES))
+def test_conv_fp32_fused_epilogue_matches_unfused_chain(card, case):
+    """conv_fp32 with the batch norm (and residual, ReLU) in its epilogue
+    equal, by torch.equal, to the unfused chain over its own bare output:
+    y * scale + offset, + residual, ReLU, each an fp32 PyTorch op (the
+    epilogue rounds each step apart, with no FMA contraction); one launch."""
+    from leclip_tpu_torch.models.resnet import bn_affine
+    from leclip_tpu_torch.ops.conv_kernels import bn_chain, conv_fp32
+
+    (h, cin, cout, k, stride), residual, relu = FUSED32_CASES[case]
+    g = torch.Generator(device=card).manual_seed(cout + cin + k)
+    x = torch.randn(3, h, h, cin, generator=g, device=card)
+    w = (torch.randn(cout, k, k, cin, generator=g, device=card) * (k * k * cin) ** -0.5
+         ).permute(0, 3, 1, 2)
+    bn = _random_bn({"scale": torch.zeros(cout), "bias": torch.zeros(cout),
+                     "mean": torch.zeros(cout), "var": torch.zeros(cout)},
+                    torch.Generator().manual_seed(cout))
+    scale, offset = bn_affine({n: t.to(card) for n, t in bn.items()}, torch.float32)
+    ho = -(-h // stride)
+    res = torch.randn(3, ho, ho, cout, generator=g, device=card) if residual else None
+    before = conv_fp32.launches
+    fused = conv_fp32(x, w, stride, scale, offset, res, relu)
+    assert conv_fp32.launches == before + 1
+    want = bn_chain(conv_fp32(x, w, stride), scale, offset, res, relu)
+    torch.cuda.synchronize()
+    assert fused.shape == (3, ho, ho, cout) and torch.isfinite(fused).all()
+    assert torch.equal(fused, want), (fused - want).abs().max().item()
+    if relu:
+        assert (fused >= 0).all()
+
+
+# (H, Cin, Cout, k, crops, few): a trunk call at a batch whose tile is wide
+# and at a few crops, whose tile is 64 x 64
+TILE_CASES = {
+    "3x3 7x7x512->512, 200 crops / 1": (7, 512, 512, 3, 200, 1),
+    "3x3 56x56x64->64, 12 crops / 2": (56, 64, 64, 3, 12, 2),
+    "1x1 14x14x256->1024, 60 crops / 1": (14, 256, 1024, 1, 60, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_conv_fp32_tiles_give_the_same_bits(card, case):
+    """conv_fp32 chooses its tile by M (and Cout): the same images at two
+    batch sizes whose tiles differ give the same output bit for bit, bare
+    and with the fused chain (every tile sums an element as one FMA chain
+    over K in order)."""
+    from leclip_tpu_torch.ops import conv_kernels as ck
+
+    h, cin, cout, k, crops, few = TILE_CASES[case]
+    g = torch.Generator(device=card).manual_seed(h + cout)
+    x = torch.randn(crops, h, h, cin, generator=g, device=card)
+    w = (torch.randn(cout, k, k, cin, generator=g, device=card) * (k * k * cin) ** -0.5
+         ).permute(0, 3, 1, 2)
+    s = 0.5 + torch.rand(cout, generator=g, device=card)
+    o = torch.randn(cout, generator=g, device=card) * 0.1
+    r = torch.randn(crops, h, h, cout, generator=g, device=card)
+    assert ck.conv_fp32_tile(crops * h * h, cout) != ck.conv_fp32_tile(few * h * h, cout)
+    assert ck.conv_fp32_tile(few * h * h, cout) == (64, 64)
+    for chain in ((), (s, o, r, True)):
+        full = ck.conv_fp32(x, w, 1, *chain)
+        part = ck.conv_fp32(x[:few], w, 1, *(chain[:2] + (r[:few], True) if chain else ()))
+        torch.cuda.synchronize()
+        assert torch.isfinite(full).all()
+        assert torch.equal(part, full[:few]), (part - full[:few]).abs().max().item()
+
+
+@pytest.mark.parametrize("rows,k,n", HEAD_PRODUCTS[:3])
+def test_matmul_fp32_fused_bias_on_card(card, rows, k, n):
+    """matmul_fp32 with its bias in conv_fp32's epilogue (one launch) equal
+    to the bare product + bias, as models/resnet._proj computed it."""
+    from leclip_tpu_torch.ops import conv_kernels as ck
+
+    g = torch.Generator(device=card).manual_seed(rows + k)
+    y = torch.randn(rows, k, generator=g, device=card)
+    w = torch.randn(k, n, generator=g, device=card) * k ** -0.5
+    bias = torch.randn(n, generator=g, device=card)
+    before = ck.conv_fp32.launches
+    got = ck.matmul_fp32(y, w, bias)
+    assert ck.conv_fp32.launches == before + 1
+    want = ck.conv_fp32(y[:, None, None, :], w.t()[:, :, None, None]).reshape(rows, n) + bias
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+def test_conv_fp32_bad_chain_arguments_raise_on_card(card):
+    """A residual of another shape or dtype, and a chain without its batch
+    norm, raise before any launch."""
+    from leclip_tpu_torch.ops.conv_kernels import conv_fp32
+
+    x = torch.zeros(2, 8, 8, 16, device=card)
+    w = torch.zeros(32, 16, 3, 3, device=card)
+    s, o = torch.ones(32, device=card), torch.zeros(32, device=card)
+    before = conv_fp32.launches
+    for kw in (dict(scale=s, offset=o, residual=torch.zeros(2, 8, 8, 16, device=card)),
+               dict(scale=s, offset=o, residual=torch.zeros(2, 8, 8, 32, device=card,
+                                                            dtype=torch.bfloat16)),
+               dict(residual=torch.zeros(2, 8, 8, 32, device=card)),
+               dict(scale=s, offset=o[:8])):
+        with pytest.raises(ValueError):
+            conv_fp32(x, w, 1, **kw)
+    assert conv_fp32.launches == before
+
+
 def test_conv_fp32_failures_raise(card, monkeypatch):
     """No hidden fallback: a build that fails and a launch that returns an
     error both raise, and nothing is counted."""

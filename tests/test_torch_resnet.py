@@ -169,20 +169,23 @@ def test_bf16_trunk_ignores_the_batch_size_as_jax(params, dtype):
                 assert moved <= CPU_FP32_MOVE * scale, (side, label, moved)
 
 
-def test_bf16_bottleneck_through_conv_bn_matches_the_unfused_chain_and_jax(params):
-    """A bf16 bottleneck with a strided downsample (RN-TEST's layer2) runs
-    each convolution with its batch norm through resnet.conv_bn: on the CPU
-    bit for bit the unfused chain (conv2d, batch_norm, relu, + identity,
-    relu), which the card's fused epilogue also equals; within the bf16
-    trunk's bound (8 bf16 epsilons of max(1, max|ref|)) of JAX's bf16
-    bottleneck."""
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_bf16_bottleneck_through_conv_bn_matches_the_unfused_chain_and_jax(params, dtype):
+    """A bottleneck with a strided downsample (RN-TEST's layer2), in bf16
+    and in fp32, runs each convolution with its batch norm through
+    resnet.conv_bn: on the CPU bit for bit the unfused chain (conv2d,
+    batch_norm, relu, + identity, relu), which the card's fused epilogues
+    (conv_bf16, conv_fp32) also equal; against JAX's bottleneck in the same
+    dtype within the bf16 trunk's bound (8 bf16 epsilons of max(1,
+    max|ref|)), in fp32 within the file's fp32 tolerance."""
     from leclip_tpu_torch.device import cast_floating
 
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32, torch.float32)
     blk = params["visual"]["layer2"]["block0"]
-    jb = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), blk)
-    tb = cast_floating(to_port(blk), torch.bfloat16)
+    jb = jax.tree.map(lambda a: jnp.asarray(a, jdt), blk)
+    tb = cast_floating(to_port(blk), tdt)
     x = _x((2, 8, 8, np.shape(blk["conv1"])[2]), 21)
-    xt = torch.tensor(x).to(torch.bfloat16)
+    xt = torch.tensor(x).to(tdt)
     out = tres.bottleneck(xt, tb, 2)
     bn = tres.batch_norm
     ref = torch.relu(bn(tres.conv2d(xt, tb["conv1"]), tb["bn1"]))
@@ -191,10 +194,44 @@ def test_bf16_bottleneck_through_conv_bn_matches_the_unfused_chain_and_jax(param
     ident = bn(tres.conv2d(tres.avg_pool(xt, 2), tb["downsample"]["conv"]),
                tb["downsample"]["bn"])
     ref = torch.relu(ref + ident)
-    assert out.dtype == torch.bfloat16 and torch.equal(out, ref)
-    jref = np.asarray(jres.bottleneck(jnp.asarray(x, jnp.bfloat16), jb, 2).astype(jnp.float32))
+    assert out.dtype == tdt and torch.equal(out, ref)
+    jref = np.asarray(jres.bottleneck(jnp.asarray(x, jdt), jb, 2).astype(jnp.float32))
+    if dtype == "fp32":
+        _close(out, jref)
+        return
     err = np.abs(out.float().numpy() - jref).max()
     assert err <= 8 * 2.0 ** -8 * max(1.0, np.abs(jref).max()), err
+
+
+def test_conv_fp32_chain_arguments_are_checked_on_cpu():
+    """conv_fp32's epilogue arguments are checked on every device, the CPU
+    included, as conv_bf16's are: scale needs offset, residual and relu need
+    the batch norm, scale / offset are [Cout], residual is fp32 in the
+    output's shape; an offset alone is a bias add (conv_bf16 refuses it)."""
+    from leclip_tpu_torch.ops import conv_kernels as ck
+
+    x = torch.tensor(_x((2, 8, 8, 16), 30))
+    w = torch.tensor(_x((32, 16, 3, 3), 31)) / 12
+    s, o = torch.ones(32), torch.tensor(_x((32,), 32))
+    r = torch.tensor(_x((2, 4, 4, 32), 33))
+    bad = {
+        "scale comes with offset": dict(scale=s),
+        "residual and relu come after": dict(residual=r, stride=2),
+        "residual and relu come after ": dict(relu=True),
+        "scale must be": dict(scale=s[:16], offset=o),
+        "offset must be": dict(scale=s, offset=o[:16]),
+        "residual must be": dict(scale=s, offset=o, residual=r),  # the output is 8x8
+        "residual must be ": dict(scale=s, offset=o, residual=r.double(), stride=2),
+    }
+    for match, kw in bad.items():
+        stride = kw.pop("stride", 1)
+        with pytest.raises(ValueError, match=match.strip()):
+            ck.conv_fp32(x, w, stride, **kw)
+    got = ck.conv_fp32(x, w, 2, s, o, r, True)
+    assert torch.equal(got, ck.bn_chain(ck.conv_fp32_plain(x, w, 2), s, o, r, True))
+    assert torch.equal(ck.conv_fp32(x, w, 1, offset=o), ck.conv_fp32_plain(x, w, 1) + o)
+    with pytest.raises(ValueError, match="offset comes with scale"):
+        ck.conv_bf16(x.to(torch.bfloat16), w, 1, offset=o)
 
 
 def test_conv_fp32_on_cpu_runs_its_plain_version():
