@@ -12,7 +12,9 @@ Endpoints (stdlib http.server):
   GET  /classes  → {"classes": [...80 names...]}
   GET  /metrics  → Prometheus text: request/image/dispatch/error counters,
                    crop-forward counter, batch-fill padding, queue depth,
-                   latency quantiles (sliding window)
+                   latency quantiles (sliding window), and the server-side
+                   time of the answered requests by stage,
+                   leclip_request_stage_seconds_sum{stage="..."} and _count
   POST /score    → body: one image (Content-Type: image/jpeg), or JSON
                    {"images": ["<base64 image>", ...]}
                    → {"scores": [[...C floats...], ...],
@@ -27,6 +29,18 @@ the engine: its first dispatch builds the kernels, under ops/_build.py's
 lock, and every dispatch enters ``torch.inference_mode`` itself (the mode
 is per thread).
 
+A request's server-side time, from its body read to its response written,
+is six stages (:data:`STAGES`), timed for every answered request:
+``decode`` (the handler parses and decodes the body), ``queue`` (waiting in
+the queue, then in the micro-batch window until its batch closes),
+``stage`` and ``launch`` (its micro-batch's ``stage_batch_fused`` and
+``dispatch_staged_fused`` calls in the worker), ``in_flight`` (launched
+until its scores are on the host: the device's work, the batch ahead of it,
+the fetch) and ``respond`` (scores set until the response is written).
+With spans on (utils/tracing.py) each request's stages are spans
+``serve.<stage>``, inside a ``serve.request`` span, all with the request's
+id; the worker's micro-batch window is a ``serve.window`` span.
+
 Usage:
     python -m leclip_tpu_torch.cli.serve --weights RN50.pt --model-dir best_model \\
         [--caption-bank bank.pkl] [--port 8000] [--batch-size 8] [--topk 5] \\
@@ -37,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import itertools
 import json
 import queue
 import threading
@@ -46,15 +61,28 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..utils.tracing import add_counters, add_spans, clock_ns, enabled, span
+
+# a request's server-side stages, in order
+STAGES = ("decode", "queue", "stage", "launch", "in_flight", "respond")
+_IDS = itertools.count()
+
 
 class _Request:
-    __slots__ = ("images", "event", "scores", "error")
+    """One request's images and answer, and its stage boundaries on
+    ``clock_ns``: its start (``started``, else its submission), then the end
+    of each stage of :data:`STAGES` as it passes it."""
 
-    def __init__(self, images: List[np.ndarray]):
+    __slots__ = ("images", "event", "scores", "error", "id", "stamps")
+
+    def __init__(self, images: List[np.ndarray], started: Optional[int] = None):
         self.images = images
         self.event = threading.Event()
         self.scores: Optional[np.ndarray] = None
         self.error: Optional[str] = None
+        self.id = next(_IDS)
+        now = clock_ns()
+        self.stamps = [now if started is None else started, now]
 
 
 class ServiceStats:
@@ -72,6 +100,9 @@ class ServiceStats:
         self.dispatch_padding = 0  # repetition-padding rows (batch fill loss)
         self.latency_sum = 0.0
         self._latencies = deque(maxlen=latency_window)
+        self.stage_seconds = dict.fromkeys(STAGES, 0.0)
+        self.staged_requests = 0
+        add_counters("serve", self.dispatch_counters)
 
     def record_request(self, n_images: int, latency_s: float, error: bool):
         with self._lock:
@@ -88,6 +119,18 @@ class ServiceStats:
             self.dispatch_images += n_real
             self.dispatch_padding += n_padding
 
+    def record_stages(self, seconds: Sequence[float]):
+        """One answered request's server-side time, by stage (:data:`STAGES`)."""
+        with self._lock:
+            self.staged_requests += 1
+            for stage, s in zip(STAGES, seconds):
+                self.stage_seconds[stage] += s
+
+    def dispatch_counters(self) -> dict:
+        with self._lock:
+            return {"dispatches": self.dispatches, "dispatch_images": self.dispatch_images,
+                    "dispatch_padding": self.dispatch_padding}
+
     def snapshot(self) -> dict:
         with self._lock:
             lat = sorted(self._latencies)
@@ -98,6 +141,8 @@ class ServiceStats:
                 "dispatch_images": self.dispatch_images,
                 "dispatch_padding": self.dispatch_padding,
                 "latency_sum": self.latency_sum,
+                "stage_seconds": dict(self.stage_seconds),
+                "staged_requests": self.staged_requests,
             }
         for q in (0.5, 0.9, 0.99):
             out[f"latency_p{int(q * 100)}"] = (
@@ -134,11 +179,20 @@ class ServiceStats:
                          % (q, s[f"latency_p{int(q * 100)}"]))
         lines.append(f"leclip_request_latency_seconds_sum {s['latency_sum']:.6f}")
         lines.append(f"leclip_request_latency_seconds_count {s['requests']}")
+        lines.append("# HELP leclip_request_stage_seconds server-side time of the answered "
+                     "requests by stage, body read to response written")
+        lines.append("# TYPE leclip_request_stage_seconds summary")
+        for stage in STAGES:
+            lines.append('leclip_request_stage_seconds_sum{stage="%s"} %.6f'
+                         % (stage, s["stage_seconds"][stage]))
+            lines.append('leclip_request_stage_seconds_count{stage="%s"} %d'
+                         % (stage, s["staged_requests"]))
         return "\n".join(lines) + "\n"
 
 
 class ScoringService:
-    """Micro-batching wrapper around ``TTAEngine.dispatch_batch_fused``.
+    """Micro-batching wrapper around ``TTAEngine.stage_batch_fused`` and
+    ``dispatch_staged_fused``.
 
     One worker thread drains the request queue, packs the images of waiting
     requests into fused dispatches of the engine's batch size (the tail
@@ -154,14 +208,21 @@ class ScoringService:
         self.queue: "queue.Queue[_Request]" = queue.Queue(maxsize=max_queue)
         self.stats = ServiceStats()
         self._stop = threading.Event()
-        self._worker = threading.Thread(target=self._loop, daemon=True)
+        self._worker = threading.Thread(target=self._loop, name="scoring-worker", daemon=True)
         self._worker.start()
 
     # ------------------------------ client API ------------------------------
     def score(self, images: List[np.ndarray], timeout: float = 120.0) -> np.ndarray:
+        return self.request(images, timeout).scores
+
+    def request(self, images: List[np.ndarray], timeout: float = 120.0,
+                started: Optional[int] = None) -> _Request:
+        """:meth:`score`'s request, answered, with its stage boundaries;
+        ``started`` (``clock_ns``) opens its decode stage. A caller that
+        writes the answer out hands it to :meth:`answered` after."""
         if not images:
             raise ValueError("score() needs at least one image")
-        req = _Request(images)
+        req = _Request(images, started)
         t0 = time.perf_counter()
         try:
             self.queue.put(req, timeout=5.0)
@@ -173,7 +234,19 @@ class ScoringService:
             self.stats.record_request(len(images), time.perf_counter() - t0, error=True)
             raise
         self.stats.record_request(len(images), time.perf_counter() - t0, error=False)
-        return req.scores
+        return req
+
+    def answered(self, req: _Request) -> None:
+        """Close a request's last stage (its response is written): its stage
+        times go to the stats and, with spans on, to the recordings."""
+        req.stamps.append(clock_ns())
+        stamps = req.stamps
+        self.stats.record_stages([(b - a) / 1e9 for a, b in zip(stamps, stamps[1:])])
+        if enabled():
+            attrs = {"request": req.id}
+            add_spans([("serve.request", stamps[0], stamps[-1], attrs)]
+                      + [("serve." + stage, a, b, attrs)
+                         for stage, a, b in zip(STAGES, stamps, stamps[1:])])
 
     def swap_engine(self, engine) -> None:
         """Hot-swap the scoring engine (checkpoint reload). The worker takes
@@ -210,16 +283,17 @@ class ScoringService:
             n_images = len(first.images)
             deadline = time.perf_counter() + self.max_wait
             # absorb whatever arrives within the window, up to the batch size
-            while n_images < self.batch_size:
-                remaining = deadline - time.perf_counter()
-                if remaining <= 0:
-                    break
-                try:
-                    nxt = self.queue.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                batch.append(nxt)
-                n_images += len(nxt.images)
+            with span("serve.window"):
+                while n_images < self.batch_size:
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                    try:
+                        nxt = self.queue.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    batch.append(nxt)
+                    n_images += len(nxt.images)
             entry = self._dispatch_async(batch)
             if entry is not None:
                 pending.append(entry)
@@ -236,19 +310,27 @@ class ScoringService:
         # micro-batch across two model versions, and the batch is fetched
         # from the engine that dispatched it
         engine = self.engine
+        closed = clock_ns()
+        staging = 0
         try:
             outs = []
             for i in range(0, len(images), self.batch_size):
                 chunk = images[i: i + self.batch_size]
                 n0 = len(chunk)
                 chunk = chunk + [chunk[-1]] * (self.batch_size - n0)
-                outs.append((engine.dispatch_batch_fused(chunk), n0))
+                t = clock_ns()
+                staged = engine.stage_batch_fused(chunk)
+                staging += clock_ns() - t
+                outs.append((engine.dispatch_staged_fused(staged), n0))
                 self.stats.record_dispatch(n0, len(chunk) - n0)
         except Exception as e:  # noqa: BLE001 — fanned back to each caller
             for req in batch:
                 req.error = f"{type(e).__name__}: {e}"
                 req.event.set()
             return None
+        launched = clock_ns()
+        for req in batch:
+            req.stamps += [closed, closed + staging, launched]
         return batch, outs, engine
 
     def _finish(self, batch: List[_Request], outs, engine):
@@ -259,8 +341,10 @@ class ScoringService:
                 req.error = f"{type(e).__name__}: {e}"
                 req.event.set()
             return
+        fetched = clock_ns()
         off = 0
         for req in batch:
+            req.stamps.append(fetched)
             req.scores = flat[off: off + len(req.images)]
             off += len(req.images)
             req.event.set()
@@ -340,6 +424,7 @@ def make_handler(service: ScoringService, topk: int, max_body_bytes: int = 64 <<
                     self._send(413, {"error": f"body exceeds {max_body_bytes} bytes"})
                     return
                 body = self.rfile.read(length)
+                started = clock_ns()
                 ctype = self.headers.get("Content-Type", "")
                 if ctype.startswith("application/json"):
                     blobs = [base64.b64decode(s) for s in json.loads(body)["images"]]
@@ -355,9 +440,11 @@ def make_handler(service: ScoringService, topk: int, max_body_bytes: int = 64 <<
                     if declared_pixels(b) > max_pixels:
                         self._send(400, {"error": f"image exceeds {max_pixels} pixels"})
                         return
-                scores = service.score(decode_bytes_batch(blobs))
+                req = service.request(decode_bytes_batch(blobs), started=started)
+                scores = req.scores
                 self._send(200, {"scores": [[float(x) for x in row] for row in scores],
                                  "topk": service.topk_labels(scores, topk)})
+                service.answered(req)
             except Exception as e:  # noqa: BLE001 — surface to the client
                 self._send(500, {"error": f"{type(e).__name__}: {e}"})
 

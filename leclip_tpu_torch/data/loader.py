@@ -8,7 +8,9 @@ leclip_tpu/runtime/jpeg.py and cli/serve.py). ``ImageBatcher`` and
 ``decode_bytes_batch`` decode JPEGs with the native multithreaded libjpeg
 runtime (runtime/jpeg.py, PIL's output bit for bit) when it is available, as
 the JAX package's do, and everything else with PIL; runtime/jpeg.py counts
-which decoder took each image. ``PairBatcher`` decodes the same way."""
+which decoder took each image. ``PairBatcher`` decodes the same way. With
+spans on (utils/tracing.py) each caption batch is a ``loader.caption_batch``
+span and each decoded image batch a ``loader.decode`` span."""
 
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import concurrent.futures
 from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
+
+from ..utils.tracing import span
 
 
 class CaptionBatcher:
@@ -53,13 +57,15 @@ class CaptionBatcher:
         order = order[self.shard_index * per_shard: (self.shard_index + 1) * per_shard]
         bs = self.batch_size
         for s in range(self.steps_per_epoch()):
-            idx = order[s * bs : (s + 1) * bs]
-            if len(idx) < bs:
-                idx = np.concatenate([idx, order[: bs - len(idx)]])
-            yield {
-                "img": self.tokens[idx].astype(np.int32),
-                "label": self.labels[idx].astype(np.float32),
-            }
+            with span("loader.caption_batch"):
+                idx = order[s * bs : (s + 1) * bs]
+                if len(idx) < bs:
+                    idx = np.concatenate([idx, order[: bs - len(idx)]])
+                batch = {
+                    "img": self.tokens[idx].astype(np.int32),
+                    "label": self.labels[idx].astype(np.float32),
+                }
+            yield batch
 
 
 class PairBatcher:
@@ -224,9 +230,13 @@ class ImageBatcher:
 
             for start in range(0, len(self.paths), self.batch_size):
                 chunk = self.paths[start: start + self.batch_size]
-                yield decode_batch(chunk, threads=self.workers), chunk
+                with span("loader.decode"):
+                    images = decode_batch(chunk, threads=self.workers)
+                yield images, chunk
             return
         with concurrent.futures.ThreadPoolExecutor(self.workers) as pool:
             for start in range(0, len(self.paths), self.batch_size):
                 chunk = self.paths[start: start + self.batch_size]
-                yield list(pool.map(load_image, chunk)), chunk
+                with span("loader.decode"):
+                    images = list(pool.map(load_image, chunk))
+                yield images, chunk

@@ -33,9 +33,9 @@ runs in full fp32 where its operands are fp32 (TF32 off, ``device.no_tf32``).
 ``validate`` scores the held-out caption probe (``TRAIN.probe_holdout``) or
 else the dataset's val images through a one-member TTA engine;
 ``TRAIN.profile_dir`` traces a bounded window of first-epoch steps with
-torch.profiler; ``Caption_distill_double_adapter`` (the
-:class:`CaptionDistillAdapterTrainer`) encodes the prompts through the
-bottleneck adapter of models/adapter.py."""
+torch.profiler, the step's parts named by its spans (utils/tracing.py);
+``Caption_distill_double_adapter`` (the :class:`CaptionDistillAdapterTrainer`)
+encodes the prompts through the bottleneck adapter of models/adapter.py."""
 
 from __future__ import annotations
 
@@ -56,8 +56,9 @@ from ..models.prompt import assemble_prompts, build_prompt_learner, ema_update
 from ..ops import losses as L
 from ..parallel.mesh import DataMesh, all_reduce_mean, data_mesh, prefetch_sharded, replicate
 from ..parallel.multihost import barrier, is_primary
-from ..utils.logging import MetricMeter, profiler_trace
+from ..utils.logging import MetricMeter
 from ..utils.registry import TRAINER_REGISTRY
+from ..utils.tracing import Parts, profiler_trace, span
 from .checkpoint import resume_if_exists, save_checkpoint
 from .config import Config
 from .metrics import MetricsWriter
@@ -73,6 +74,10 @@ def flags_from_config(cfg: Config) -> DenseFlags:
         spatial_scale_text=float(cfg.TRAIN.spatial_SCALE_text),
         spatial_scale_image=float(cfg.TRAIN.spatial_SCALE_image),
     )
+
+
+# the train step's parts in order, each ended by its ``mark`` call
+STEP_PARTS = ("caption", "teacher", "prompt forward", "loss", "backward", "optimizer")
 
 
 def make_train_step(
@@ -114,9 +119,12 @@ def make_train_step(
     takes the global batch's step.
 
     The returned step takes an optional ``mark(name)`` callback, called at
-    the end of each part of the step ("caption", "teacher", "prompt
-    forward", "loss", "backward", "optimizer"), with which a caller times
-    the parts."""
+    the end of each part of the step (:data:`STEP_PARTS`: "caption",
+    "teacher", "prompt forward", "loss", "backward", "optimizer"), with
+    which a caller times the parts. With spans on (utils/tracing.py) the
+    step's upload and each part are spans too, ``train.upload`` and
+    ``train.caption`` … ``train.optimizer``, host ranges with their device
+    time."""
     device = clip_params["text"]["token_embedding"].device
     caption_clip = {"text": caption_text if caption_text is not None else clip_params["text"]}
 
@@ -167,10 +175,10 @@ def make_train_step(
         return loss, aux
 
     def train_step(state: TrainState, captions, labels, mark=None):
-        mark = mark or (lambda name: None)
-        captions = torch.as_tensor(captions, device=device)
-        labels = torch.as_tensor(labels, dtype=torch.float32, device=device)
-        with no_tf32():
+        with span("train.upload", device=True):
+            captions = torch.as_tensor(captions, device=device)
+            labels = torch.as_tensor(labels, dtype=torch.float32, device=device)
+        with no_tf32(), Parts("train.", STEP_PARTS, mark, device=True) as mark:
             caption_feats = encode_captions(caption_clip, clip_cfg, captions, flags,
                                             q8=caption_q8, fused=caption_fused)
             mark("caption")

@@ -34,6 +34,11 @@ With ``shard_bank=True`` the caption bank is zero-padded to a multiple of
 the world and row-sharded, and retrieval runs the ring kNN of
 parallel/retrieval.py; otherwise every rank holds the whole bank.
 
+With spans on (utils/tracing.py) a fused batch is ``score.stage`` (host prep
+and upload), ``score.dispatch`` (the host queueing its work) holding the
+device-timed ``score.resize``, ``score.image_tower``, ``score.retrieval``
+and ``score.score_fuse``, and ``score.fetch`` (the wait for its scores).
+
 Not ported yet (ROADMAP.md): the engine's ``resize_impl="gather"`` option
 (the gather sampler itself is ops/crops.py ``crop_and_resize``)."""
 
@@ -64,6 +69,7 @@ from ..ops.preprocess import clip_normalize
 from ..ops.resize_matmul import crop_and_resize_matmul, crop_and_resize_matmul_batch
 from ..parallel.mesh import DataMesh, fetch_global, gather_rows, put_global, replicate
 from ..parallel.retrieval import retrieval_augment_sharded
+from ..utils.tracing import span
 
 DEFAULT_BUCKETS: Tuple[Tuple[int, int], ...] = (
     (256, 256), (384, 512), (512, 384), (512, 512), (512, 768), (768, 512),
@@ -309,19 +315,20 @@ class TTAEngine:
         thread stage batches ahead of the compute loop. Under a mesh the
         host prepares the whole (padded) batch, as every rank does, and
         uploads this rank's rows."""
-        images, b0 = self._mesh_pad(images)
-        padded, boxes, content, _ = self.prepare_batch(images)
-        b, n = boxes.shape[0], boxes.shape[1]
-        # every image with the same content size shares one crop geometry,
-        # built once for the batch
-        shared = bool((content == content[0]).all())
-        im_d = self._put_batch(padded)
-        bx_d = (torch.from_numpy(boxes[0]).to(self.device) if shared
-                else self._put_batch(boxes))
-        if self.mesh is not None:
-            per = b // self.mesh.world
-            b, content = per, content[self.mesh.rank * per: (self.mesh.rank + 1) * per]
-        return Staged(n, b, shared, im_d, bx_d, content, b0)
+        with span("score.stage"):
+            images, b0 = self._mesh_pad(images)
+            padded, boxes, content, _ = self.prepare_batch(images)
+            b, n = boxes.shape[0], boxes.shape[1]
+            # every image with the same content size shares one crop geometry,
+            # built once for the batch
+            shared = bool((content == content[0]).all())
+            im_d = self._put_batch(padded)
+            bx_d = (torch.from_numpy(boxes[0]).to(self.device) if shared
+                    else self._put_batch(boxes))
+            if self.mesh is not None:
+                per = b // self.mesh.world
+                b, content = per, content[self.mesh.rank * per: (self.mesh.rank + 1) * per]
+            return Staged(n, b, shared, im_d, bx_d, content, b0)
 
     def _crops(self, staged: Staged) -> torch.Tensor:
         imgs = staged.images.to(self.compute_dtype) / 255.0
@@ -362,9 +369,12 @@ class TTAEngine:
         """crops → image tower → retrieval of a staged batch: (image
         features, augmented global features, top-k scores), shared by the
         fused and the dump path."""
-        crops = self._crops(staged)
-        feats = self._features(crops.reshape((-1,) + crops.shape[2:]))
-        return (feats,) + tuple(self._retrieve(feats))
+        with span("score.resize", device=True):
+            crops = self._crops(staged)
+        with span("score.image_tower", device=True):
+            feats = self._features(crops.reshape((-1,) + crops.shape[2:]))
+        with span("score.retrieval", device=True):
+            return (feats,) + tuple(self._retrieve(feats))
 
     def _group_logits(self, feats, aug, scores, b: int, n: int):
         """Per member group: (names, global and local logits [m, b, n, C] in
@@ -418,10 +428,12 @@ class TTAEngine:
         crops → image tower → retrieval → members, fusion and routing. Under
         a mesh, a :class:`MeshRows` of this rank's rows, which
         :meth:`_fetch` gathers."""
-        self._model_groups()
-        with torch.inference_mode():
-            feats, aug, scores = self._image_pass(staged)
-            out = self._score(feats, aug, scores, staged.batch, staged.n_boxes)
+        with span("score.dispatch"):
+            self._model_groups()
+            with torch.inference_mode():
+                feats, aug, scores = self._image_pass(staged)
+                with span("score.score_fuse", device=True):
+                    out = self._score(feats, aug, scores, staged.batch, staged.n_boxes)
         if self.mesh is None:
             return out
         return MeshRows(out, self.mesh, staged.n_real)
@@ -433,9 +445,10 @@ class TTAEngine:
     def _fetch(out) -> np.ndarray:
         """A dispatched batch → host fp32 [B, C]: under a mesh every rank's
         rows gathered and cut to the caller's images."""
-        if isinstance(out, MeshRows):
-            return fetch_global(out.rows.float(), out.mesh)[: out.n_real]
-        return out.float().cpu().numpy()
+        with span("score.fetch"):
+            if isinstance(out, MeshRows):
+                return fetch_global(out.rows.float(), out.mesh)[: out.n_real]
+            return out.float().cpu().numpy()
 
     def run_batch_fused(self, images: Sequence[np.ndarray]) -> np.ndarray:
         """Competition scoring of one batch → fused [B, n_cls] (the

@@ -68,6 +68,7 @@ from ..device import tree_map
 from ..ops.attention import _matmul, _mm32, attention_core
 from ..ops.conv_kernels import bn_chain, conv_bf16, conv_fp32, conv_library, matmul_fp32
 from ..ops.resize_matmul import cubic_kernel
+from ..utils.tracing import span
 
 _BN_EPS = 1e-5
 
@@ -267,8 +268,9 @@ def project_dense(feature_map: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def resnet_features(x: torch.Tensor, params: dict) -> torch.Tensor:
-    """Images [B, H, W, 3] → the layer4 map [B, H/32, W/32, width·32]."""
-    with _no_tf32():
+    """Images [B, H, W, 3] → the layer4 map [B, H/32, W/32, width·32]; with
+    spans on, the device-timed span ``score.trunk``."""
+    with span("score.trunk", device=True), _no_tf32():
         for i in (1, 2, 3):
             x = conv_bn(x, params[f"conv{i}"], params[f"bn{i}"], stride=2 if i == 1 else 1)
         x = avg_pool(x, 2)

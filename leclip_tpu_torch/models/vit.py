@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.tracing import span
 from .transformer import init_block_stack, layer_norm, run_transformer
 
 
@@ -28,7 +29,8 @@ def encode_image_vit(x: torch.Tensor, params: dict, n_heads: int, patch: int,
     masked through ``kv_len`` and pad query rows sliced off. ``q8``: stacked
     int8 block weights (ops/quant.py), the W8A8 path; ``fused`` runs the bf16
     block kernels (ops/block_kernels.py); ``impl`` routes the unfused
-    attention (ops/attention.py)."""
+    attention (ops/attention.py). With spans on, the blocks are the
+    device-timed span ``score.blocks``."""
     tokens = patchify(x, params["patch_kernel"], patch)
     b, n, width = tokens.shape
     cls = params["class_embedding"].to(x.dtype).expand(b, 1, width)
@@ -39,8 +41,9 @@ def encode_image_vit(x: torch.Tensor, params: dict, n_heads: int, patch: int,
     t_pad = (-n_real) % 8
     if t_pad:
         tokens = F.pad(tokens, (0, 0, 0, t_pad))
-    tokens = run_transformer(tokens, params["blocks"], n_heads, impl=impl,
-                             kv_len=n_real if t_pad else None, q8=q8, fused=fused)
+    with span("score.blocks", device=True):
+        tokens = run_transformer(tokens, params["blocks"], n_heads, impl=impl,
+                                 kv_len=n_real if t_pad else None, q8=q8, fused=fused)
     if t_pad:
         tokens = tokens[:, :n_real]
     tokens = layer_norm(tokens, params["ln_post"]["scale"], params["ln_post"]["bias"])

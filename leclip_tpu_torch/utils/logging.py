@@ -1,12 +1,10 @@
 """Stdout-tee logger, meters, and reproducible seeding (the port's own copy of
 leclip_tpu/utils/logging.py; capability parity with dassl/utils/logger.py,
-dassl/utils/meters.py and dassl/utils/tools.py:73-78), and
-:func:`profiler_trace`, the trace window of the JAX package's
-``profiler_trace`` on torch.profiler."""
+dassl/utils/meters.py and dassl/utils/tools.py:73-78). The profiler window
+and the program's spans are in utils/tracing.py."""
 
 from __future__ import annotations
 
-import contextlib
 import os
 import random
 import sys
@@ -96,24 +94,3 @@ class MetricMeter:
         return self.delimiter.join(
             f"{k} {m.val:.4f} ({m.avg:.4f})" for k, m in self.meters.items()
         )
-
-
-@contextlib.contextmanager
-def profiler_trace(logdir: Optional[str]):
-    """A torch.profiler trace around a region, written into ``logdir`` as a
-    TensorBoard-loadable ``*.pt.trace.json`` (the Chrome trace format that
-    TensorBoard's PyTorch profiler plugin reads); host activity, and the
-    card's kernels where there is one. A no-op when ``logdir`` is empty. The
-    profiler is closed and its trace written if the region raises."""
-    if not logdir:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
-        yield

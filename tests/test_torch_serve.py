@@ -14,6 +14,7 @@ import base64
 import io
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
@@ -26,7 +27,8 @@ from _torch_port import tta_engines
 from leclip_tpu.cli import serve as jserve
 from leclip_tpu.models.clip import CLIPConfig
 from leclip_tpu.runtime.jpeg import decode_bytes_batch as jdecode
-from leclip_tpu_torch.cli.serve import ScoringService, _Request, build_service, make_handler
+from leclip_tpu_torch.cli.serve import (STAGES, ScoringService, _Request, build_service,
+                                        make_handler)
 from leclip_tpu_torch.data.loader import declared_pixels, decode_bytes_batch
 from leclip_tpu_torch.inference import tta as ttta
 
@@ -120,13 +122,13 @@ def test_microbatching_groups_concurrent_requests(service, rng):
     imgs = [rng.integers(0, 255, (96, 128, 3)).astype(np.uint8) for _ in range(4)]
     singles = [service.score([im]) for im in imgs]
     calls = []
-    real = service.engine.dispatch_batch_fused
+    real = service.engine.dispatch_staged_fused
 
-    def counting(images):
-        calls.append(len(images))
-        return real(images)
+    def counting(staged):
+        calls.append(staged.batch)
+        return real(staged)
 
-    service.engine.dispatch_batch_fused = counting
+    service.engine.dispatch_staged_fused = counting
     try:
         results = [None] * 4
 
@@ -139,7 +141,7 @@ def test_microbatching_groups_concurrent_requests(service, rng):
         for t in threads:
             t.join(timeout=300)
     finally:
-        del service.engine.dispatch_batch_fused
+        del service.engine.dispatch_staged_fused
     assert calls and sum(calls) <= 2 * 4
     assert len(calls) < 4, f"no micro-batching happened: {calls}"
     for i in range(4):
@@ -178,7 +180,7 @@ def test_close_fails_queued_requests():
         n_blocks = 1
         models = {"m": None}
 
-        def dispatch_batch_fused(self, images):
+        def stage_batch_fused(self, images):
             raise AssertionError("should not dispatch")
 
     svc = ScoringService(NeverEngine(), CLASSNAMES, batch_size=2, max_wait_ms=1.0)
@@ -203,7 +205,10 @@ def test_swap_mid_microbatch_does_not_split_versions():
             self.tag = tag
             self.on_dispatch = on_dispatch
 
-        def dispatch_batch_fused(self, images):
+        def stage_batch_fused(self, images):
+            return images
+
+        def dispatch_staged_fused(self, images):
             served.append(self.tag)
             if self.on_dispatch is not None:
                 cb, self.on_dispatch = self.on_dispatch, None
@@ -248,6 +253,13 @@ def test_metrics_endpoint(server, service, rng):
     before = _metrics(server)
     _post(f"{server}/score", _jpeg_bytes(rng), "image/jpeg", timeout=120)
     after = _metrics(server)
+    # a request's stages are recorded once its response is written, which
+    # its client can see first
+    count = 'leclip_request_stage_seconds_count{stage="respond"}'
+    deadline = time.monotonic() + 30
+    while after[count] == before[count] and time.monotonic() < deadline:
+        time.sleep(0.01)
+        after = _metrics(server)
     assert after["leclip_requests_total"] == before["leclip_requests_total"] + 1
     assert after["leclip_images_total"] == before["leclip_images_total"] + 1
     d_disp = after["leclip_dispatches_total"] - before["leclip_dispatches_total"]
@@ -259,6 +271,17 @@ def test_metrics_endpoint(server, service, rng):
     assert after["leclip_request_latency_seconds_count"] >= 1
     assert after['leclip_request_latency_seconds{quantile="0.5"}'] > 0
     assert after["leclip_uptime_seconds"] > 0
+    # the answered request's server-side time by stage: one more of each, all
+    # of them together at least its latency inside the service
+    sums = {s: after[f'leclip_request_stage_seconds_sum{{stage="{s}"}}']
+            - before[f'leclip_request_stage_seconds_sum{{stage="{s}"}}'] for s in STAGES}
+    for s in STAGES:
+        assert (after[f'leclip_request_stage_seconds_count{{stage="{s}"}}']
+                == before[f'leclip_request_stage_seconds_count{{stage="{s}"}}'] + 1)
+        assert sums[s] >= 0
+    latency = (after["leclip_request_latency_seconds_sum"]
+               - before["leclip_request_latency_seconds_sum"])
+    assert sum(sums.values()) >= latency - 1e-4
 
 
 def test_reload_not_configured_is_501(server):
@@ -304,7 +327,10 @@ def test_service_matches_jax_service(engines, rng):
         np.testing.assert_allclose(np.asarray(got["scores"]), np.asarray(want["scores"]),
                                    rtol=1e-4, atol=1e-4)
         assert [t["label"] for t in got["topk"][0]] == [t["label"] for t in want["topk"][0]]
-        assert _metrics(turl).keys() == _metrics(jurl).keys()
+        # the port's /metrics adds the server-side time by stage
+        stage_keys = {f'leclip_request_stage_seconds_{k}{{stage="{s}"}}'
+                      for k in ("sum", "count") for s in STAGES}
+        assert _metrics(turl).keys() == _metrics(jurl).keys() | stage_keys
     finally:
         for srv, svc in ((jsrv, jsvc), (tsrv, tsvc)):
             srv.shutdown()

@@ -174,6 +174,9 @@ def test_profiler_trace_window(tmp_path):
     assert len(files) == 1 and files[0].name.endswith(".pt.trace.json")
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+    # the window turns the program's spans on: the trace names the step's parts
+    names = {str(e.get("name", "")) for e in events}
+    assert {"train.upload", "train.caption", "train.optimizer", "loader.caption_batch"} <= names
     assert tr._prof_cm is None
 
     # the NaN guard inside the window: the profiler is closed and written
@@ -197,7 +200,7 @@ def test_profiler_trace_window(tmp_path):
     assert bad._prof_cm is None
     assert [p for p in (tmp_path / "prof2").rglob("*.pt.trace.json")]
     # ... so a later window in the process opens and writes its own trace
-    from leclip_tpu_torch.utils.logging import profiler_trace
+    from leclip_tpu_torch.utils.tracing import profiler_trace
 
     with profiler_trace(str(tmp_path / "prof3")):
         torch.ones(4).sum()
