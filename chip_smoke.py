@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. device: card name, power limit, the nvcc build of every kernel (nine
+  1. device: card name, power limit, the nvcc build of every kernel (ten
      libraries, one nvcc each, all started together), and in the SASS of the
      four libraries whose products run on the Hopper GEMMs the wgmma (HGMMA
      bf16 in attn_block_bf16, mlp_bf16 and attn_block_int8's out-projection;
@@ -26,6 +26,10 @@ Phases (any failure exits non-zero and prints no result line):
      torch.profiler); resident_attention's gradient against autograd
      through its reference; the int8 GEMM epilogue's branch-free forms
      against the divisions they replace;
+     resize_band (the crops of a batch: the scale, the banded bicubic resize
+     and the normalisation) against its plain version at the scoring cells'
+     batches, timed beside it and its bound (scripts/probe_resize_band.py
+     runs this part alone);
      and the device time and rate of every launch inside the four block
      kernels at the ViT shape (scripts/probe_port_kernels.py, torch.profiler);
   3. the main paths at full ViT-B/16 width (12x768 vision, 12x512 text,
@@ -783,14 +787,16 @@ RN50_FP32 = RN50_CONVS + POOL_PRODUCTS["dense"]
 
 
 def expect_launches(what, counts, path, n, rn_forwards=0, rn32_forwards=0, rn_convs=RN50_CONVS,
-                    rn32_launches=RN50_FP32):
+                    rn32_launches=RN50_FP32, resizes=0):
     """The kernels of ``path`` ran in each of n layers, conv_bf16 once per
     convolution (``rn_convs`` a forward) of each of ``rn_forwards`` bf16
     ResNet tower forwards and conv_fp32 ``rn32_launches`` times in each of
-    ``rn32_forwards`` fp32 ones (None: a positive number of forwards), and
-    no other kernel ran."""
+    ``rn32_forwards`` fp32 ones (None: a positive number of forwards),
+    resize_band ``resizes`` times (once a batch of crops), and no other
+    kernel ran."""
     want = dict.fromkeys(counts, 0)
     want.update({k: m * n for k, m in PATH_KERNELS[path].items()})
+    want["resize_band"] = resizes
     for kernel, forwards, per in (("conv_bf16", rn_forwards, rn_convs),
                                   ("conv_fp32", rn32_forwards, rn32_launches)):
         got = counts.get(kernel, 0)
@@ -862,7 +868,7 @@ def score_path(prec, opt_prec, params, clip_cfg, specs, bank, freq, images, card
         f"{PATH_KERNELS[launch_path] or 'none'} in each of 12 layers x {n_batches} batches)")
     expect_launches(f"{tag} scoring", counts, launch_path, 12 * n_batches,
                     rn_forwards=n_batches if rn_bf16(engine) else 0,
-                    rn32_forwards=n_batches if rn_fp32(engine) else 0)
+                    rn32_forwards=n_batches if rn_fp32(engine) else 0, resizes=n_batches)
     fused = outs[0]
     if fused.shape != (N_IMAGES, 80) or not np.isfinite(fused).all():
         raise AssertionError(f"fused scores bad: shape {fused.shape}")
@@ -1685,7 +1691,8 @@ def phase_unfused_paths(card, inputs):
     log(f"[main:pallas] prompt features of {len(specs_b)} members ({text_passes} text passes) + "
         f"one batch of {N_IMAGES * (1 + engine_b.n_blocks)} crops in {run_s:.3f} s; launches "
         f"{counts_b} (12 layers x ({text_passes} text passes + 1 image tower))")
-    expect_launches("pallas prompt features + scoring", counts_b, "pallas", 12 * (text_passes + 1))
+    expect_launches("pallas prompt features + scoring", counts_b, "pallas", 12 * (text_passes + 1),
+                    resizes=1)
     if fused_b.shape != (N_IMAGES, 80) or not np.isfinite(fused_b).all():
         raise AssertionError(f"pallas path: fused scores bad, shape {fused_b.shape}")
     crops = N_IMAGES * (1 + engine_b.n_blocks)
@@ -1803,6 +1810,100 @@ def phase_launch_times(card):
         for short, ms, rate, unit in rows:
             log(f"    {ms:.4f} ms  {short}" + (f"  {rate:.1f} {unit}" if rate is not None else ""))
         res[name] = {short: ms for short, ms, _, _ in rows}
+    return res
+
+
+# --------------------------- crop + resize ------------------------------------
+
+# the scoring cells' batches: 8 images, 305 crops each, in the engine's bucket
+RESIZE_SHAPES = {  # name: (content (h, w) of each image, bucket, boxes shared)
+    "sorted batch 8 x 480x640 in 512x768 (rn50.score, vitb16.score)":
+        ([(480, 640)] * 8, (512, 768), True),
+    "mixed batch of 8 in 768x768 (rn50.serve)":
+        ([(480, 640), (640, 480), (427, 640), (640, 427), (640, 640), (480, 640), (640, 480),
+          (427, 640)], (768, 768), False),
+}
+
+
+def resize_flops(sides, out=224) -> float:
+    """benchmark/work.py's count: the separable bicubic resize of square
+    crops of the given sides to out x out x 3 at the taps the cubic needs
+    (4, widened by the shrink factor), a rows pass then a columns pass."""
+    total = 0.0
+    for s in sides:
+        taps = 4.0 * max(s / out, 1.0)
+        total += 2.0 * (out * taps * s * 3 + out * out * 3 * taps)
+    return total
+
+
+def resize_inputs(sizes, bucket, shared, seed=0):
+    """uint8 images of the given contents zero-padded into the bucket and
+    the engine's boxes (central square, then the 2/3/4 pyramid): the first
+    image's where ``shared``, else each image's own; with the crops' sides."""
+    from leclip_tpu_torch.ops.crops import tta_sampling_boxes
+
+    rng = np.random.default_rng(seed)
+    imgs, boxes = np.zeros((len(sizes),) + bucket + (3,), np.uint8), []
+    for i, (h, w) in enumerate(sizes):
+        imgs[i, :h, :w] = rng.integers(0, 256, (h, w, 3))
+        pyramid, _ = tta_sampling_boxes(h, w, (2, 3, 4))
+        side = min(h, w)
+        gy, gx = (h - side) / 2.0, (w - side) / 2.0
+        boxes.append(np.concatenate([[[gy, gx, gy + side, gx + side]], pyramid]))
+    boxes = np.stack(boxes).astype(np.float32)
+    sides = [float(v) for b in (boxes[:1] if shared else boxes) for v in b[:, 2] - b[:, 0]]
+    return (torch.from_numpy(imgs).to(DEVICE),
+            torch.from_numpy(boxes[0] if shared else boxes).to(DEVICE),
+            torch.tensor(sizes, dtype=torch.int32, device=DEVICE),
+            sides * (len(sizes) if shared else 1))
+
+
+def phase_resize(card):
+    """resize_band (ops/resize_kernels.py) at the cells' batches, bf16 as the
+    scoring engines run it: the resize against its plain version (the dense
+    fp32 products of ops/resize_matmul.py) within one bf16 ulp on under 0.1%
+    of the values (summation order only), the fused normalisation equal to
+    clip_normalize of the kernel's own resize, one launch a call; the
+    kernel's time (CUDA events and device time) beside the plain version's
+    and its bound (benchmark/work.py's: the taps' fp32 operations, the
+    images read and the crops written once). Returns {shape: row}."""
+    from leclip_tpu_torch.ops import resize_kernels as rk
+    from leclip_tpu_torch.ops.preprocess import clip_normalize
+
+    res = {}
+    for name, (sizes, bucket, shared) in RESIZE_SHAPES.items():
+        images, boxes, content, sides = resize_inputs(sizes, bucket, shared)
+        before = rk.resize_band.launches
+        out = rk.resize_band(images, boxes, content, 224, dtype=torch.bfloat16, normalize=False)
+        if rk.resize_band.launches != before + 1:
+            raise AssertionError(f"[resize] {name}: not one launch")
+        ref = rk.resize_band_plain(images, boxes, content, 224, dtype=torch.bfloat16,
+                                   normalize=False)
+        normed = rk.resize_band(images, boxes, content, 224, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs()
+        mant, exp = torch.frexp(ref.float())
+        ulps = (d / torch.ldexp(torch.ones_like(mant), exp - 8)).max().item()
+        share = (d > 0).float().mean().item()
+        same_norm = torch.equal(normed, clip_normalize(out))
+        del ref, normed, d, mant, exp
+        args = (images, boxes, content, 224)
+        ms = cuda_ms(lambda: rk.resize_band(*args, dtype=torch.bfloat16), 10)
+        dev = device_ms(lambda: rk.resize_band(*args, dtype=torch.bfloat16), 5)
+        plain = cuda_ms(lambda: rk.resize_band_plain(*args, dtype=torch.bfloat16), 3)
+        nbytes = images.numel() + out.numel() * 2
+        b_ms, by = bound_s(resize_flops(sides) / PEAK_FP32_FLOPS, nbytes)
+        log(f"[resize] {name}, {out.shape[1]} crops an image, bf16: kernel {ms:.3f} ms (device "
+            f"{dev:.3f}), plain {plain:.3f} ms, bound {b_ms:.4f} ms ({by}: "
+            f"{resize_flops(sides) / 1e9:.2f} GFLOP at the taps, {nbytes / 1e6:.1f} MB); "
+            f"against plain max {ulps:.3g} bf16 ulps, {share:.2e} of the values differ (<= 1 "
+            f"ulp on < 1e-3), fused normalisation exact: {same_norm}, on {card}")
+        if not (ulps <= 1.0 and share < 1e-3 and same_norm):
+            raise AssertionError(f"[resize] {name}: kernel disagrees with its plain version")
+        res[name] = dict(ms=ms, device_ms=dev, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                         max_ulps=ulps, differ_share=share)
+        del out, images
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2228,7 +2329,8 @@ def dump_path(tag, engine, paths, card):
                 fused = out
     for c in counts:
         expect_launches(f"[dump:{tag}] run_full_inference(save_dir)", c, PATHS_OF[tag],
-                        12 * n_batches, rn_forwards=None if rn_bf16(engine) else 0)
+                        12 * n_batches, rn_forwards=None if rn_bf16(engine) else 0,
+                        resizes=n_batches)
     with open(os.path.join(dumps[-1], "data.pkl"), "rb") as f:
         data = pickle.load(f)
     with open(os.path.join(dumps[-1], "sim_matrix.pkl"), "rb") as f:
@@ -2565,7 +2667,7 @@ def service(tag, keep, blobs, tmp, card):
     ok &= cross["err"] <= bound * scale
     dispatches = int(d["leclip_dispatches_total"])
     expect_launches(f"[serve:{tag}] load", load["counts"], PATHS_OF[tag], 12 * dispatches,
-                    rn_forwards=dispatches if rn_bf16(keep["engine"]) else 0)
+                    rn_forwards=dispatches if rn_bf16(keep["engine"]) else 0, resizes=dispatches)
     pad = d["leclip_dispatch_padding_total"] / (d["leclip_dispatch_images_total"]
                                                 + d["leclip_dispatch_padding_total"])
     lat = np.sort(load["latency"])
@@ -3000,7 +3102,7 @@ def validate_run(tag, trainer, paths, n_images, path, card):
     n_batches = math.ceil(n_images / SERVICE_BATCH)
     rn32 = None if not trainer.clip_cfg.is_vit else 0  # the fp32 engine's tower: conv_fp32
     expect_launches(f"[validate:{tag}] validate()", counts, path, 12 * n_batches,
-                    rn32_forwards=rn32)
+                    rn32_forwards=rn32, resizes=n_batches)
     prompt = {k: v for k, v in trainer.state.params.items() if k != "_adapter"}
     spec = build_model_spec(trainer.clip_params, trainer.clip_cfg, prompt, trainer.constants,
                             trainer.flags)
@@ -3763,7 +3865,7 @@ def ft_pairs(cfg, tmp, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, decoded = launches.launch_counts(), jpeg.decode_counts()
-    expect_launches("fit_pairs", counts, "fp32", 12 * 2 * steps)
+    expect_launches("fit_pairs", counts, "fp32", 12 * 2 * steps, resizes=2 * steps)
     save_s = sum(t for t, _ in saves)
     ckpt_bytes = saves[-1][1]
     loop_s = wall - save_s
@@ -3792,7 +3894,7 @@ def ft_pairs(cfg, tmp, card):
     second.fit_pairs(batcher, epochs=3, output_dir=out, log_every=steps)
     torch.cuda.synchronize()
     resumed = launches.launch_counts()
-    expect_launches("fit_pairs resumed", resumed, "fp32", 12 * steps)
+    expect_launches("fit_pairs resumed", resumed, "fp32", 12 * steps, resizes=steps)
     log(f"[finetune:fit_pairs] a fresh tuner resumed at epoch {start}, step "
         f"{2 * steps} -> {second.state.step} after a third epoch; parameters and optimizer state "
         f"equal to the first run's: {same}")
@@ -4095,7 +4197,8 @@ def mesh_engine_part(mesh, card):
         got[tag + "_s"] = time.perf_counter() - t0
         if tag == "mesh":
             counts = launches.launch_counts()
-    expect_launches("[mesh:engine] scoring", counts, "int8", 12 * MESH_SCORE_BATCHES)
+    expect_launches("[mesh:engine] scoring", counts, "int8", 12 * MESH_SCORE_BATCHES,
+                    resizes=MESH_SCORE_BATCHES)
     eng = engines["mesh"]
     if eng.caption_bank.shape[0] != -(-BANK_ROWS // mesh.world):
         raise AssertionError(f"[mesh:engine] bank shard of {eng.caption_bank.shape[0]} rows")
@@ -4295,6 +4398,7 @@ def main() -> int:
     for tag in kern:
         kern[tag].update(kern8[tag])
     kern_attn = phase_kernels_attention(fa, gen)
+    resize = phase_resize(card)
     launch_ms = phase_launch_times(card)
     inputs = main_inputs()
     total, bank_counts, score_counts, _, vit = phase_main_paths(card, inputs)
@@ -4378,6 +4482,17 @@ def main() -> int:
                                  "recomputes packed_attention_reference"}
                if k == "resident_attention" else {}),
         })
+    main_r = resize[next(iter(RESIZE_SHAPES))]
+    line["kernels"].append({
+        "name": "resize_band", "route": "cuda", "source": "leclip_tpu_torch/csrc/resize_band.cu",
+        "replaces": "XLA's dense products (leclip_tpu/ops/resize_matmul.py), no Pallas kernel",
+        "launches": sum(c["resize_band"] for c in (total, counts_a, counts_b, ft_counts,
+                                                   mesh_counts)),
+        **{key: main_r[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        "shape": next(iter(RESIZE_SHAPES)), "variants": resize,
+        "path": "every scored batch's crops (TTAEngine._crops), the train transform "
+                "(preprocess_train_batch)",
+    })
     t = rn_conv["totals"]
     line["kernels"].append({
         "name": "conv_bf16", "route": "cuda", "source": "leclip_tpu_torch/csrc/conv_bf16.cu",

@@ -2,7 +2,8 @@
 the fused path and the per-member dump path.
 
 One pass per batch: uint8 images → 305 crops each (1 global + the 2/3/4
-pyramid) → matmul bicubic resize → CLIP normalise → image tower once for all
+pyramid) → bicubic resize and CLIP normalise (ops/resize_kernels.py: one
+banded kernel launch a batch on the card) → image tower once for all
 members → one exact top-k retrieval against the caption bank → every
 member's global/local logits (members of a group stacked on a leading axis)
 → fuse/fuse6 block fusion → per-class routing → fused [B, C] scores.
@@ -65,8 +66,7 @@ from ..models.dense_clip import (
 from ..ops.crops import tta_sampling_boxes
 from ..ops.ensemble import (DEFAULT_ROUTING, adjust_predictions, aggregate_blocks, fuse, fuse6,
                             routing_vector)
-from ..ops.preprocess import clip_normalize
-from ..ops.resize_matmul import crop_and_resize_matmul, crop_and_resize_matmul_batch
+from ..ops.resize_kernels import resize_band
 from ..parallel.mesh import DataMesh, fetch_global, gather_rows, put_global, replicate
 from ..parallel.retrieval import retrieval_augment_sharded
 from ..utils.tracing import span
@@ -125,10 +125,9 @@ def build_model_spec(clip_params: dict, clip_cfg: CLIPConfig, trainable: dict,
 class Staged(NamedTuple):
     n_boxes: int
     batch: int             # this rank's rows (all rows without a mesh)
-    shared: bool
     images: torch.Tensor   # [B, bh, bw, 3] uint8 on the device
-    boxes: torch.Tensor    # [n, 4] (shared) or [B, n, 4]
-    content: np.ndarray    # [B, 2] content (h, w)
+    boxes: torch.Tensor    # [n, 4] shared by the batch, or [B, n, 4]
+    content: torch.Tensor  # [B, 2] int32 content (h, w) on the device
     n_real: int            # the caller's images before the mesh padding
 
 
@@ -328,22 +327,16 @@ class TTAEngine:
             if self.mesh is not None:
                 per = b // self.mesh.world
                 b, content = per, content[self.mesh.rank * per: (self.mesh.rank + 1) * per]
-            return Staged(n, b, shared, im_d, bx_d, content, b0)
+            content = torch.from_numpy(content)
+            if self.device.type == "cuda":  # from pinned memory: no wait for the stream
+                content = content.pin_memory().to(self.device, non_blocking=True)
+            return Staged(n, b, im_d, bx_d, content, b0)
 
     def _crops(self, staged: Staged) -> torch.Tensor:
-        imgs = staged.images.to(self.compute_dtype) / 255.0
-        size = self.crop_size
-        if staged.shared:
-            h, w = (int(v) for v in staged.content[0])
-            crops = crop_and_resize_matmul_batch(imgs, staged.boxes, size, self.antialias,
-                                                 content_hw=(h, w))
-        else:
-            crops = torch.stack([
-                crop_and_resize_matmul(imgs[i], staged.boxes[i], size, self.antialias,
-                                       content_hw=tuple(int(v) for v in staged.content[i]))
-                for i in range(staged.batch)
-            ])
-        return clip_normalize(crops)
+        """[B, n, crop, crop, 3] normalised crops in the compute dtype: one
+        call for the batch, shared boxes or each image's own."""
+        return resize_band(staged.images, staged.boxes, staged.content, self.crop_size,
+                           self.antialias, self.compute_dtype)
 
     def _features(self, flat: torch.Tensor):
         """The image tower once for every member, under the first member's

@@ -31,6 +31,7 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_PF = ctypes.POINTER(ctypes.c_float)
 
 # kernel library → (source, {C function: argtypes}); every function returns
 # a cudaError_t as int, except the size queries (*_smem, *_bytes)
@@ -67,6 +68,9 @@ KERNELS: Dict[str, tuple] = {
     "conv_fp32": ("conv_fp32.cu", {
         "leclip_conv_fp32": [_P] * 6 + [_I] * 13 + [_P],
         "leclip_conv_fp32_tile": [_L, _I],
+    }),
+    "resize_band": ("resize_band.cu", {
+        "leclip_resize_band": [_P] * 4 + [_I] * 4 + [_L] + [_I] * 5 + [_PF, _PF, _P],
     }),
 }
 

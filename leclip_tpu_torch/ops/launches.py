@@ -9,6 +9,7 @@ from .block_kernels import attn_block_bf16, mlp_bf16
 from .conv_kernels import conv_bf16, conv_fp32
 from .flash_attention import flash_attention, resident_attention
 from .quant_kernels import attn_block_int8, ln_quant, mlp_int8
+from .resize_kernels import resize_band
 
 WRAPPERS = {
     "attn_block_bf16": attn_block_bf16,
@@ -20,6 +21,7 @@ WRAPPERS = {
     "flash_attention": flash_attention,
     "conv_bf16": conv_bf16,
     "conv_fp32": conv_fp32,
+    "resize_band": resize_band,
 }
 
 

@@ -19,7 +19,6 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .crops import crop_and_resize
-from .resize_matmul import crop_and_resize_matmul_per_image
 
 RRC_TRIALS = 10  # torchvision's rejection trials, picked vectorised
 RRC_SCALE = (0.6, 1.0)
@@ -193,19 +192,22 @@ def preprocess_train_batch(images_u8: torch.Tensor, content_hw: torch.Tensor,
     """The train transform on a bucket-padded uint8 batch [B, bh, bw, 3]
     with each image's true (h, w) in ``content_hw`` [B, 2]: the random
     resized crop's box inside the content, else the content's central
-    square, resampled by the antialiased bicubic matmul resizer
-    (ops/resize_matmul.py, reflection at the content boundary); the cutout
+    square, scaled to [0, 1] and resampled by the antialiased bicubic
+    resizer (ops/resize_kernels.resize_band, one box an image: the banded
+    kernel on the card; reflection at the content boundary); the cutout
     on the centre-crop branch only; then the flip and CLIP normalisation.
     → [B, size, size, 3] in ``dtype``."""
-    img = images_u8.to(dtype) / 255.0
-    hw = content_hw.to(device=img.device, dtype=torch.float32)
+    from .resize_kernels import resize_band  # it imports this module
+
+    hw = content_hw.to(device=images_u8.device, dtype=torch.float32)
     h, w = hw[:, 0], hw[:, 1]
     box_rrc = random_resized_crop_box(h, w, draws.rrc)
     side = torch.minimum(h, w)
     cy, cx = h / 2.0, w / 2.0
     box_cc = torch.stack([cy - side / 2, cx - side / 2, cy + side / 2, cx + side / 2], dim=-1)
     box = torch.where(draws.use_rrc[:, None], box_rrc, box_cc)
-    crop = crop_and_resize_matmul_per_image(img, box, hw, size)
+    crop = resize_band(images_u8, box[:, None], content_hw, size, dtype=dtype,
+                       normalize=False)[:, 0]
     cut = cutout(crop, draws.cut_y, draws.cut_x, cutout_proportion)
     crop = torch.where(draws.use_rrc[:, None, None, None], crop, cut)
     return clip_normalize(random_flip(crop, draws.flip))

@@ -10,7 +10,8 @@ with per-crop interpolation matrices. Keys cubic a=-0.5 (PIL's bicubic);
 rows (PIL behaviour on downscale); out-of-range taps reflect once at the
 content boundary; rows renormalised in fp32, matrices then cast to the image
 dtype; both products accumulate in fp32 and round to the image dtype, as the
-JAX function does."""
+JAX function does. On the card the port resamples through the banded kernel
+of ops/resize_kernels.py, whose plain version these products are."""
 
 from __future__ import annotations
 

@@ -530,7 +530,7 @@ def test_dump_path_on_card_matches_fused_path(card, prec):
     its dumps equals the fused path within 1e-4 of max(1, max|fused|) (both
     fuse the same fp32 logits, in another order), run_batch equals
     run_batch_multidispatch within 1e-5, and each pass launches its route's
-    kernels once a layer."""
+    kernels once a layer and resize_band once for the batch's crops."""
     import numpy as np
 
     from leclip_tpu_torch.inference.tta import TTAEngine, build_model_spec
@@ -566,6 +566,7 @@ def test_dump_path_on_card_matches_fused_path(card, prec):
     counts = launches.launch_counts()
     want = dict.fromkeys(counts, 0)
     want.update({k: 2 * n for k, n in per_layer.items()})
+    want["resize_band"] = 1
     assert counts == want
     slow = engine.run_batch_multidispatch(images)
     for name in dumps:
@@ -1269,3 +1270,170 @@ def test_vit_finetune_step_on_card_matches_the_xla_route(card):
             gap += d.square().sum().item()
             ref += dx.square().sum().item()
         assert gap ** 0.5 <= 1e-3 * ref ** 0.5
+
+
+# ------------------------------- resize_band -------------------------------
+#
+# The banded crop + resize kernel (ops/resize_kernels.py) against its plain
+# version, the dense fp32 products of ops/resize_matmul.py, on the card. Both
+# round at the same points (the scaled pixel, the weights, the rows pass, the
+# columns pass) and differ in summation order only: the kernel sums a row's
+# taps in index order, cuBLAS the whole bucket's (zeros included) in its
+# own, and a row's normalising sum differs the same way. So the resize
+# (normalize off) is within one bf16 ulp of the plain value on under 0.1% of
+# the elements in bf16, within 1e-5 absolute in fp32; the fused scale and
+# normalisation are held exactly (an identity crop gives the scaled pixel;
+# the normalised output is clip_normalize of the kernel's own resize).
+
+
+def _resize_inputs(card, sizes, bucket, seed=0, shared=False):
+    """uint8 images of the given (h, w) zero-padded into ``bucket`` and the
+    engine's boxes for them (the central square, then the 2/3/4 pyramid):
+    the first image's [N, 4] where ``shared``, else [B, N, 4]."""
+    import numpy as np
+
+    from leclip_tpu_torch.ops.crops import tta_sampling_boxes
+
+    rng = np.random.default_rng(seed)
+    imgs, boxes = [], []
+    for h, w in sizes:
+        img = np.zeros(bucket + (3,), np.uint8)
+        img[:h, :w] = rng.integers(0, 256, (h, w, 3))
+        pyramid, _ = tta_sampling_boxes(h, w, (2, 3, 4))
+        side = min(h, w)
+        gy, gx = (h - side) / 2.0, (w - side) / 2.0
+        boxes.append(np.concatenate([[[gy, gx, gy + side, gx + side]], pyramid]))
+        imgs.append(img)
+    boxes = torch.tensor(np.stack(boxes), dtype=torch.float32, device=card)
+    return (torch.from_numpy(np.stack(imgs)).to(card), boxes[0] if shared else boxes,
+            torch.tensor(sizes, dtype=torch.int32, device=card))
+
+
+def _resize_close(out, ref, dtype):
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype == dtype
+    assert torch.isfinite(out).all()
+    d = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert d.max().item() <= 1e-5, d.max().item()
+        return
+    mant, exp = torch.frexp(ref.float())
+    ulp = torch.ldexp(torch.ones_like(mant), exp - 8)  # bf16's spacing at |ref|
+    assert (d <= ulp).all(), (d / ulp).max().item()
+    assert (d > 0).float().mean().item() < 1e-3, (d > 0).float().mean().item()
+
+
+RESIZE_CELLS = {  # route: (content sizes (h, w), bucket, boxes shared)
+    "shared 8 x 640x480 in 768x512": ([(640, 480)] * 8, (768, 512), True),
+    "mixed 8 in 768x768": ([(480, 640), (640, 480), (427, 640), (640, 427), (640, 640),
+                            (480, 640), (375, 500), (612, 612)], (768, 768), False),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("cell", list(RESIZE_CELLS))
+def test_resize_band_matches_plain_at_the_cells_geometry(card, cell, dtype):
+    """The scoring cells' batches of 8 images and 305 crops each: the shared
+    route (one box set, images of one size) and the per-image route (mixed
+    sizes in the larger bucket), one launch each."""
+    from leclip_tpu_torch.ops import resize_kernels as rk
+    from leclip_tpu_torch.ops.preprocess import clip_normalize
+
+    sizes, bucket, shared = RESIZE_CELLS[cell]
+    images, boxes, content = _resize_inputs(card, sizes, bucket, shared=shared)
+    before = rk.resize_band.launches
+    out = rk.resize_band(images, boxes, content, 224, dtype=dtype, normalize=False)
+    assert rk.resize_band.launches == before + 1
+    _resize_close(out, rk.resize_band_plain(images, boxes, content, 224, dtype=dtype,
+                                            normalize=False), dtype)
+    normed = rk.resize_band(images, boxes, content, 224, dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(normed, clip_normalize(out))
+
+
+@pytest.mark.parametrize("antialias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_resize_band_edges_on_card(card, dtype, antialias):
+    """Upscaled crops (side 72 < 224), boxes on every edge of the content
+    (the reflected taps), a whole content shrunk 3.6x, a thin strip, an odd
+    output size and an unaligned bucket width, each image its own boxes; an
+    identity crop (64 pixels at integer offsets to 64: every centre on a
+    pixel, one tap of weight 1) gives the scaled pixel itself."""
+    import numpy as np
+
+    from leclip_tpu_torch.ops import resize_kernels as rk
+
+    rng = np.random.default_rng(1)
+    sizes, bucket = [(200, 230), (256, 318), (97, 131)], (256, 318)
+    imgs = np.zeros((3,) + bucket + (3,), np.uint8)
+    boxes = []
+    for i, (h, w) in enumerate(sizes):
+        imgs[i, :h, :w] = rng.integers(0, 256, (h, w, 3))
+        boxes.append([[0, 0, 72, 72], [h - 72, w - 72, h, w], [0, w - 72, 72, w],
+                      [0, 0, h, w], [h / 3, 1.5, h / 3 + 9.75, w - 0.5], [3.25, 7.5, h - 2, w - 5]])
+    boxes[1][0] = [16.0, 40.0, 80.0, 104.0]  # the identity crop at 64
+    images = torch.from_numpy(imgs).to(card)
+    boxes = torch.tensor(boxes, dtype=torch.float32, device=card)
+    content = torch.tensor(sizes, dtype=torch.int32, device=card)
+    for out_size in (224, 61):
+        out = rk.resize_band(images, boxes, content, out_size, antialias, dtype, normalize=False)
+        ref = rk.resize_band_plain(images, boxes, content, out_size, antialias, dtype,
+                                   normalize=False)
+        _resize_close(out, ref, dtype)
+    scaled = images[1, 16:80, 40:104].to(dtype) / 255.0
+    out = rk.resize_band(images, boxes, content, 64, antialias, dtype, normalize=False)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1, 0], scaled)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_resize_band_crop_bits_ignore_batch_and_route(card, dtype):
+    """A crop's bits do not depend on its batch (alone or among 8) or on
+    its route (the batch's boxes, or the same boxes as each image's own)."""
+    from leclip_tpu_torch.ops import resize_kernels as rk
+
+    images, boxes, content = _resize_inputs(card, [(480, 640)] * 8, (512, 768), seed=2,
+                                            shared=True)
+    whole = rk.resize_band(images, boxes, content, 224, dtype=dtype)
+    own = rk.resize_band(images, boxes.expand(8, -1, -1), content, 224, dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, own)
+    for k in (0, 5):
+        alone = rk.resize_band(images[k:k + 1], boxes, content[k:k + 1], 224, dtype=dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], whole[k])
+
+
+def test_resize_band_refuses_what_it_cannot_compute(card):
+    """A content outside its bucket is written as NaN (no read past the
+    image), and the wrapper raises on other image or output types."""
+    from leclip_tpu_torch.ops import resize_kernels as rk
+
+    images, boxes, content = _resize_inputs(card, [(64, 80)] * 2, (64, 80), shared=True)
+    bad = rk.resize_band(images, boxes, torch.tensor([[64, 80], [65, 80]], device=card), 32)
+    torch.cuda.synchronize()
+    assert torch.isfinite(bad[0]).all() and torch.isnan(bad[1]).all()
+    with pytest.raises(ValueError, match="uint8"):
+        rk.resize_band(images.float(), boxes, content, 32)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        rk.resize_band(images, boxes, content, 32, dtype=torch.float16)
+
+
+def test_train_transform_on_card_matches_the_plain_route(card, monkeypatch):
+    """preprocess_train_batch on the card (fine-tuning: fp32, one box an
+    image): one resize_band launch, within 1e-5 of the same transform on the
+    plain route."""
+    from leclip_tpu_torch.ops import preprocess
+    from leclip_tpu_torch.ops import resize_kernels as rk
+
+    images, _, content = _resize_inputs(card, [(384, 512), (512, 384), (448, 448), (480, 512)],
+                                        (512, 512), seed=3)
+    draws = preprocess.sample_train(torch.Generator(device=card).manual_seed(4), (4,),
+                                    device=card)
+    before = rk.resize_band.launches
+    out = preprocess.preprocess_train_batch(images, content, draws)
+    assert rk.resize_band.launches == before + 1
+    monkeypatch.setattr(rk, "resize_band", rk.resize_band_plain)
+    ref = preprocess.preprocess_train_batch(images, content, draws)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-5
