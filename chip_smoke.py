@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. device: card name, power limit, the nvcc build of every kernel (ten
+  1. device: card name, power limit, the nvcc build of every kernel (eleven
      libraries, one nvcc each, all started together), and in the SASS of the
      four libraries whose products run on the Hopper GEMMs the wgmma (HGMMA
      bf16 in attn_block_bf16, mlp_bf16 and attn_block_int8's out-projection;
@@ -30,6 +30,10 @@ Phases (any failure exits non-zero and prints no result line):
      and the normalisation) against its plain version at the scoring cells'
      batches, timed beside it and its bound (scripts/probe_resize_band.py
      runs this part alone);
+     avg_pool_nhwc (the ResNet trunk's average pools) at RN50's seven pool
+     shapes at the scored batch's crops, bf16 and fp32: 0 values differ
+     from F.avg_pool2d, timed beside the library's pool and its bytes bound
+     (scripts/probe_avg_pool.py runs this part alone);
      and the device time and rate of every launch inside the four block
      kernels at the ViT shape (scripts/probe_port_kernels.py, torch.profiler);
   3. the main paths at full ViT-B/16 width (12x768 vision, 12x512 text,
@@ -779,6 +783,7 @@ PATH_KERNELS = {  # path: launches of each of its kernels per layer
 
 
 RN50_CONVS = 55  # convolutions of the RN50 trunk: conv_bf16 launches of one bf16 tower forward
+RN_POOLS = 7     # average pools of a ResNet tower forward: the stem's, two a stride-2 stage
 # conv_fp32 launches of one fp32 forward: every convolution, and the pool's
 # fp32 products (q, k, v, c; 4) and the dense projection's (v, c; 2), which
 # run conv_fp32 as 1x1 convolutions (models/resnet._proj)
@@ -792,8 +797,8 @@ def expect_launches(what, counts, path, n, rn_forwards=0, rn32_forwards=0, rn_co
     convolution (``rn_convs`` a forward) of each of ``rn_forwards`` bf16
     ResNet tower forwards and conv_fp32 ``rn32_launches`` times in each of
     ``rn32_forwards`` fp32 ones (None: a positive number of forwards),
-    resize_band ``resizes`` times (once a batch of crops), and no other
-    kernel ran."""
+    avg_pool_nhwc ``RN_POOLS`` times in each of those forwards, resize_band
+    ``resizes`` times (once a batch of crops), and no other kernel ran."""
     want = dict.fromkeys(counts, 0)
     want.update({k: m * n for k, m in PATH_KERNELS[path].items()})
     want["resize_band"] = resizes
@@ -804,6 +809,7 @@ def expect_launches(what, counts, path, n, rn_forwards=0, rn32_forwards=0, rn_co
             raise AssertionError(f"{what}: {kernel} launched {got} times, not a positive "
                                  f"multiple of a forward's {per}")
         want[kernel] = got if forwards is None else per * forwards
+        want["avg_pool"] += RN_POOLS * want[kernel] // per
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 
@@ -1907,6 +1913,65 @@ def phase_resize(card):
     return res
 
 
+# ------------------------------ average pool ----------------------------------
+
+# the RN50 trunk's seven pools at 224² crops: (where, input H = W, C)
+POOL_SHAPES = (("stem", 112, 64), ("layer2 conv3", 56, 128), ("layer2 downsample", 56, 256),
+               ("layer3 conv3", 28, 256), ("layer3 downsample", 28, 512),
+               ("layer4 conv3", 14, 512), ("layer4 downsample", 14, 1024))
+
+
+def phase_avg_pool(card):
+    """avg_pool_nhwc (ops/pool_kernels.py) at the RN50 trunk's seven pool
+    shapes at the scored batch's crops (N_IMAGES x 305), bf16 as the scoring
+    engines run it and fp32 as TEST.PREC fp32 does: 0 values differ from
+    F.avg_pool2d on the card, one launch a call; the kernel's time (CUDA
+    events and device time) beside the library's and the bytes bound (the
+    map read once, the output written once). Returns {dtype: {shape: row,
+    "total": the seven summed}}."""
+    from leclip_tpu_torch.ops import pool_kernels as pk
+
+    crops = N_IMAGES * 305
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    res = {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        rows = {}
+        for where, h, c in POOL_SHAPES:
+            x = torch.randn(crops, h, h, c, generator=gen, device=DEVICE).to(dtype)
+            before = pk.avg_pool_nhwc.launches
+            out = pk.avg_pool_nhwc(x, 2)
+            if pk.avg_pool_nhwc.launches != before + 1:
+                raise AssertionError(f"[pool] {where}: not one launch")
+            ref = pk.avg_pool_nhwc_plain(x, 2)
+            torch.cuda.synchronize()
+            differ = int((out != ref).sum().item())
+            ms = cuda_ms(lambda: pk.avg_pool_nhwc(x, 2), 10)
+            dev = device_ms(lambda: pk.avg_pool_nhwc(x, 2), 5)
+            lib = cuda_ms(lambda: pk.avg_pool_nhwc_plain(x, 2), 10)
+            lib_dev = device_ms(lambda: pk.avg_pool_nhwc_plain(x, 2), 5)
+            nbytes = (x.numel() + out.numel()) * x.element_size()
+            b_ms, by = bound_s(0.0, nbytes)
+            rows[where] = dict(ms=ms, device_ms=dev, library_ms=lib, library_device_ms=lib_dev,
+                               bound_ms=b_ms, bound_by=by, differ=differ)
+            log(f"[pool] {tag} {where} [{crops}, {h}, {h}, {c}]: kernel {ms:.4f} ms (device "
+                f"{dev:.4f}), library {lib:.4f} ms (device {lib_dev:.4f}), bound {b_ms:.4f} ms "
+                f"({by}: {nbytes / 1e9:.3f} GB), {b_ms / dev:.1%} of the bound; {differ} values "
+                f"differ from F.avg_pool2d")
+            if differ:
+                raise AssertionError(f"[pool] {tag} {where}: {differ} values differ from the "
+                                     "library's")
+            del x, out, ref
+        total = {key: sum(r[key] for r in rows.values())
+                 for key in ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms")}
+        log(f"[pool] {tag}, the seven at {crops} crops: kernel {total['ms']:.4f} ms (device "
+            f"{total['device_ms']:.4f}), library {total['library_ms']:.4f} (device "
+            f"{total['library_device_ms']:.4f}), bound {total['bound_ms']:.4f} ms; "
+            f"{total['bound_ms'] / total['device_ms']:.1%} of the bound, on {card}")
+        res[tag] = dict(rows, total=dict(total, bound_by="bytes", differ=0))
+        torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------- training -----------------------------------
 
 # the ema recipe (configs/trainers/ema.yaml), cut to 2 epochs with every
@@ -2596,14 +2661,22 @@ def service(tag, keep, blobs, tmp, card):
     dispatched = []  # (engine, the images of one dispatch, its output), in the worker's order
 
     def recorded(eng):
-        real = eng.dispatch_batch_fused
+        # the worker stages each chunk, then dispatches it (cli/serve.py
+        # _dispatch_async): each staged batch is matched to its images
+        stage, launch = eng.stage_batch_fused, eng.dispatch_staged_fused
+        chunks = {}
 
-        def dispatch(batch):
-            out = real(batch)
-            dispatched.append((eng, list(batch), out))
+        def staged(batch):
+            out = stage(batch)
+            chunks[id(out)] = list(batch)
             return out
 
-        eng.dispatch_batch_fused = dispatch
+        def dispatch(st):
+            out = launch(st)
+            dispatched.append((eng, chunks.pop(id(st)), out))
+            return out
+
+        eng.stage_batch_fused, eng.dispatch_staged_fused = staged, dispatch
         return eng
 
     recorded(engine)
@@ -4399,6 +4472,7 @@ def main() -> int:
         kern[tag].update(kern8[tag])
     kern_attn = phase_kernels_attention(fa, gen)
     resize = phase_resize(card)
+    pool = phase_avg_pool(card)
     launch_ms = phase_launch_times(card)
     inputs = main_inputs()
     total, bank_counts, score_counts, _, vit = phase_main_paths(card, inputs)
@@ -4492,6 +4566,22 @@ def main() -> int:
         "shape": next(iter(RESIZE_SHAPES)), "variants": resize,
         "path": "every scored batch's crops (TTAEngine._crops), the train transform "
                 "(preprocess_train_batch)",
+    })
+    line["kernels"].append({
+        "name": "avg_pool_nhwc", "route": "cuda",
+        "source": "leclip_tpu_torch/csrc/avg_pool_nhwc.cu",
+        "replaces": "XLA's reduce_window (leclip_tpu/models/resnet.py avg_pool), no Pallas "
+                    "kernel",
+        "launches": sum(c["avg_pool"] for c in (total, counts_a, counts_b, ft_counts,
+                                                mesh_counts)),
+        **{key: pool["bf16"]["total"][key] for key in ("ms", "device_ms", "library_ms",
+                                                        "bound_ms", "bound_by", "differ")},
+        "plain_ms": pool["bf16"]["total"]["library_ms"],
+        "shape": f"RN50 trunk: its {RN_POOLS} pools, summed, at {N_IMAGES * 305} crops of "
+                 "224x224, bf16 (the plain version is the library's pool)",
+        "variants": pool,
+        "path": "every ResNet tower forward on the card (7 a forward), bf16 and fp32, and "
+                "under autograd",
     })
     t = rn_conv["totals"]
     line["kernels"].append({

@@ -51,7 +51,10 @@ pool and the products of the head are plain PyTorch, as in JAX (full fp32
 inside ``no_tf32``), but for the pool's and the dense projection's fp32
 products, which go through ``conv_kernels.matmul_fp32`` (:func:`_proj`):
 conv_fp32 as 1x1 convolutions over their rows with the bias in its
-epilogue on the card, ``y @ w + bias`` on the CPU. CPU tests against JAX:
+epilogue on the card, ``y @ w + bias`` on the CPU. The average pools go
+through ``pool_kernels.avg_pool_nhwc``: a hand-written NHWC kernel on the
+card with the library pool's bits, the library pool on the CPU. CPU tests
+against JAX:
 ``JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_resnet.py``; card
 tests: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``."""
 
@@ -61,12 +64,12 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..device import no_tf32 as _no_tf32
 from ..device import tree_map
 from ..ops.attention import _matmul, _mm32, attention_core
 from ..ops.conv_kernels import bn_chain, conv_bf16, conv_fp32, conv_library, matmul_fp32
+from ..ops.pool_kernels import avg_pool_nhwc
 from ..ops.resize_matmul import cubic_kernel
 from ..utils.tracing import span
 
@@ -146,9 +149,12 @@ def conv_bn(x: torch.Tensor, kernel: torch.Tensor, bn: dict, stride: int = 1,
 
 
 def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    """The mean of each window x window block at stride window (floor mode):
+    ``pool_kernels.avg_pool_nhwc``, the hand-written NHWC kernel on the card
+    and the library's pool on the CPU."""
     if window <= 1:
         return x
-    return F.avg_pool2d(x.permute(0, 3, 1, 2), window).permute(0, 2, 3, 1)
+    return avg_pool_nhwc(x, window)
 
 
 def bottleneck(x: torch.Tensor, p: dict, stride: int) -> torch.Tensor:

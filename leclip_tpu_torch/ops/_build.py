@@ -72,6 +72,9 @@ KERNELS: Dict[str, tuple] = {
     "resize_band": ("resize_band.cu", {
         "leclip_resize_band": [_P] * 4 + [_I] * 4 + [_L] + [_I] * 5 + [_PF, _PF, _P],
     }),
+    "avg_pool_nhwc": ("avg_pool_nhwc.cu", {
+        "leclip_avg_pool_nhwc": [_P] * 2 + [_I] * 6 + [_P],
+    }),
 }
 
 _lock = threading.Lock()

@@ -8,6 +8,7 @@ from __future__ import annotations
 from .block_kernels import attn_block_bf16, mlp_bf16
 from .conv_kernels import conv_bf16, conv_fp32
 from .flash_attention import flash_attention, resident_attention
+from .pool_kernels import avg_pool_nhwc
 from .quant_kernels import attn_block_int8, ln_quant, mlp_int8
 from .resize_kernels import resize_band
 
@@ -22,6 +23,7 @@ WRAPPERS = {
     "conv_bf16": conv_bf16,
     "conv_fp32": conv_fp32,
     "resize_band": resize_band,
+    "avg_pool": avg_pool_nhwc,
 }
 
 

@@ -1437,3 +1437,136 @@ def test_train_transform_on_card_matches_the_plain_route(card, monkeypatch):
     ref = preprocess.preprocess_train_batch(images, content, draws)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= 1e-5
+
+
+# ------------------------------ average pool ---------------------------------
+
+POOL_SHAPES = {  # name: (crops, H, W, C, k)
+    "rn50 stem 112x112x64": (3, 112, 112, 64, 2),
+    "rn50 layer2 conv3 56x56x128": (3, 56, 56, 128, 2),
+    "rn50 layer2 downsample 56x56x256": (3, 56, 56, 256, 2),
+    "rn50 layer3 conv3 28x28x256": (3, 28, 28, 256, 2),
+    "rn50 layer3 downsample 28x28x512": (3, 28, 28, 512, 2),
+    "rn50 layer4 conv3 14x14x512": (3, 14, 14, 512, 2),
+    "rn50 layer4 downsample 14x14x1024": (3, 14, 14, 1024, 2),
+    "rn50x4 stem 144x144x80": (2, 144, 144, 80, 2),
+    "rn50x4 layer4 18x18x1280 (9 wide out)": (2, 18, 18, 1280, 2),
+    "odd 15x17x80": (3, 15, 17, 80, 2),
+    "k 3 on 20x23x96": (2, 20, 23, 96, 3),
+    "k 4 on 9x13x16": (2, 9, 13, 16, 4),
+}
+
+
+def _library_pool(x, k):
+    return torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), k).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", list(POOL_SHAPES))
+def test_avg_pool_kernel_matches_the_library(card, case, dtype):
+    """avg_pool_nhwc at RN50's seven pool shapes (a few crops each), wider
+    presets' widths and grids, odd sizes and windows of 3 and 4: 0 values
+    differ from F.avg_pool2d on the card (the fp32 sum in the library's
+    order, an fp32 division, one rounding), one launch a call."""
+    from leclip_tpu_torch.ops import pool_kernels as pk
+
+    n, h, w, c, k = POOL_SHAPES[case]
+    x = torch.randn(n, h, w, c, generator=torch.Generator(device=card).manual_seed(h + c),
+                    device=card).to(dtype)
+    before = pk.avg_pool_nhwc.launches
+    out = pk.avg_pool_nhwc(x, k)
+    assert pk.avg_pool_nhwc.launches == before + 1
+    ref = _library_pool(x, k)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == dtype and out.is_contiguous()
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+    assert torch.equal(out, pk.avg_pool_nhwc_plain(x, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_avg_pool_kernel_ignores_the_batch(card, dtype):
+    """An image's pooled values are the same alone, in its batch, and in the
+    batch reversed."""
+    from leclip_tpu_torch.ops import pool_kernels as pk
+
+    x = torch.randn(6, 56, 56, 256, generator=torch.Generator(device=card).manual_seed(1),
+                    device=card).to(dtype)
+    whole = pk.avg_pool_nhwc(x, 2)
+    rev = pk.avg_pool_nhwc(x.flip(0).contiguous(), 2).flip(0)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, rev)
+    for i in (0, 3, 5):
+        alone = pk.avg_pool_nhwc(x[i:i + 1], 2)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], whole[i])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape,k", [((2, 28, 28, 256), 2), ((2, 15, 17, 80), 2),
+                                     ((2, 20, 23, 96), 3)])
+def test_avg_pool_gradient_on_card_matches_the_library(card, shape, k, dtype):
+    """Under autograd the forward launches the kernel and the backward is
+    the plain gradient: both bit for bit the library pool's, on the card."""
+    from leclip_tpu_torch.ops import pool_kernels as pk
+
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn(*shape, generator=g, device=card).to(dtype)
+    cot = torch.randn(shape[0], shape[1] // k, shape[2] // k, shape[3], generator=g,
+                      device=card).to(dtype)
+    xa = x.clone().requires_grad_(True)
+    before = pk.avg_pool_nhwc.launches
+    out = pk.avg_pool_nhwc(xa, k)
+    assert pk.avg_pool_nhwc.launches == before + 1 and out.requires_grad
+    out.backward(cot)
+    xb = x.clone().requires_grad_(True)
+    ref = _library_pool(xb, k)
+    ref.backward(cot)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert xa.grad.dtype == dtype and torch.equal(xa.grad, xb.grad)
+
+
+def test_avg_pool_refuses_what_it_cannot_compute(card):
+    """The wrapper raises, launching nothing, on another dtype, a
+    non-contiguous map, a pixel whose channels do not fill 16-byte vectors,
+    a map that does not start on a 16-byte boundary and a window larger
+    than the map."""
+    from leclip_tpu_torch.ops import pool_kernels as pk
+
+    x = torch.randn(2, 8, 8, 64, device=card)
+    before = pk.avg_pool_nhwc.launches
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        pk.avg_pool_nhwc(x.half(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.avg_pool_nhwc(x.transpose(1, 2), 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        pk.avg_pool_nhwc(x[..., :4].contiguous().bfloat16(), 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        pk.avg_pool_nhwc(torch.randn(1 + 2 * 8 * 8 * 64, device=card)[1:].view(2, 8, 8, 64), 2)
+    with pytest.raises(ValueError, match="does not fit"):
+        pk.avg_pool_nhwc(x, 9)
+    assert pk.avg_pool_nhwc.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_rn50_trunk_pools_on_the_kernel_with_the_library_bits(card, dtype, monkeypatch):
+    """resnet_features at RN50's geometry (16 crops of 224²), bf16 and
+    fp32: seven pool launches a forward, and the layer4 map bit for bit
+    that of the same forward with models/resnet.avg_pool patched back to the
+    library pool."""
+    from leclip_tpu_torch.models import resnet
+    from leclip_tpu_torch.ops import pool_kernels as pk
+
+    vis = _rn50_bf16(card, 3, dtype)
+    x = torch.rand(16, 224, 224, 3, generator=torch.Generator(device=card).manual_seed(9),
+                   device=card).to(dtype)
+    before = pk.avg_pool_nhwc.launches
+    with torch.inference_mode():
+        got = resnet.resnet_features(x, vis)
+        assert pk.avg_pool_nhwc.launches == before + 7
+        monkeypatch.setattr(resnet, "avg_pool",
+                            lambda y, k: y if k <= 1 else _library_pool(y, k))
+        ref = resnet.resnet_features(x, vis)
+    assert pk.avg_pool_nhwc.launches == before + 7
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, ref), (got.float() - ref.float()).abs().max().item()

@@ -181,7 +181,8 @@ def test_int8_cpu_tensors_take_the_plain_path_and_count_no_launch():
     assert launches.launch_counts() == {"attn_block_bf16": 0, "mlp_bf16": 0, "ln_quant": 0,
                                         "attn_block_int8": 0, "mlp_int8": 0,
                                         "resident_attention": 0, "flash_attention": 0,
-                                        "conv_bf16": 0, "conv_fp32": 0, "resize_band": 0}
+                                        "conv_bf16": 0, "conv_fp32": 0, "resize_band": 0,
+                                        "avg_pool": 0}
     tqk.mlp_int8.launches = 3
     launches.reset_launch_counts()
     assert tqk.mlp_int8.launches == 0
